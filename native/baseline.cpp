@@ -1,5 +1,5 @@
 // Honest single-core CPU baseline: the reference engine's query hot path,
-// re-implemented faithfully in C++ over the SAME index arrays the TPU
+// re-implemented faithfully in C++ over the SAME index arrays the device
 // serving path uses.
 //
 // This is the stand-in for running the Rust reference itself (no cargo in
@@ -14,7 +14,7 @@
 // It is deliberately ADVANTAGED versus the real reference: the posting
 // arrays here are raw (no vint+delta decode, which the reference pays per
 // element — token_to_anchor_score_vint.rs:127+), and the dictionary lookup
-// is done once outside the timed loop. A >=10x TPU speedup against this
+// is done once outside the timed loop. A device speedup against this
 // number therefore understates the true gap.
 //
 // Built into libveloci_native.so next to the indexer (see

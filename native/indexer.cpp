@@ -231,7 +231,7 @@ struct Parser {
 
 // ------------------------------------------------------- term interning
 // Open-addressing string-interning map over a chunked byte arena — the
-// TPU-native stand-in for the reference's `inohashmap` (src/create.rs:50).
+// stand-in for the reference's `inohashmap` (src/create.rs:50).
 // One FNV-1a hash + linear probe per token, zero per-term heap nodes, no
 // per-token std::string allocation (tokens are looked up as raw byte
 // ranges straight out of the leaf text).

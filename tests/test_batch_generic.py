@@ -330,8 +330,8 @@ def test_batch_plain_trees_parity(pers, monkeypatch):
 
 def test_fuzzy_generic_row_level_redispatch(monkeypatch):
     """One hot row overflowing the optimistic capacity must re-dispatch
-    ALONE: the other rows' sweeps are not re-executed (VERDICT r3 #6 — the
-    round-3 runner re-ran the whole chunk). Asserted via a dispatch spy on
+    ALONE: the other rows' sweeps are not re-executed (re-running the whole
+    chunk was an earlier bug). Asserted via a dispatch spy on
     batched_fuzzy_generic_topk, plus full parity with the host executor."""
     import json
     import time
@@ -506,8 +506,7 @@ def test_why_found_requests_batch_with_parity(pers, monkeypatch):
     from host-known matches (exact bisects + memoized fuzzy sweeps). Full
     output parity — including why_found highlight fragments rendered via
     search_to_result_with_doc — against the per-request host executor.
-    Round-3 VERDICT weak #7: search_batch folded neither suggest nor
-    why_found; suggest folded in round 4 already, this folds why_found."""
+    search_batch folds both suggest and why_found."""
     stats_mod = importlib.import_module("veloci_tpu.search.stats")
     search_to_result_with_doc = ex_mod.search_to_result_with_doc
 

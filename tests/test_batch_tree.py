@@ -576,7 +576,7 @@ def test_all_runner_types_share_one_batch(pers, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# Deep trees (VERDICT r3 #5): OR-of-ANDs and depth-3 shapes through the deep
+# Deep trees: OR-of-ANDs and depth-3 shapes through the deep
 # tree kernel (tree_candidates_deep) — raw Request JSON surface, zero
 # per-request fallbacks.
 

@@ -2,10 +2,9 @@
 stdout and rc=0 in EVERY exit path — normal completion, induced hard
 deadline, SIGTERM (the driver's `timeout` sends TERM first).
 
-Round-3 lesson: the round's official bench artifact was rc=124 with
-parsed=null because the CPU-fallback run kept the TPU-sized workload and
-the single JSON line printed only at the very end (VERDICT round 3,
-weak #1). These tests keep that failure mode dead.
+A run that is cut by its caller's timeout must still leave one parseable
+line, and a CPU run must shrink to a liveness-sized workload. These tests
+keep both true.
 """
 
 import json
@@ -24,8 +23,6 @@ REPO = os.path.dirname(BENCH)
 def _env(**extra):
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
-    env.pop("BENCH_START_TS", None)
-    env.pop("BENCH_CPU_FALLBACK", None)
     env.update({k: str(v) for k, v in extra.items()})
     return env
 

@@ -4,8 +4,8 @@ with the dense vector RESIDENT ON DEVICE must match the host numpy path.
 
 This is the round-2 'extend the fused device path' coverage: the device
 executor tree (device filter masks, device boost columns, scatter-applied
-1:n/phrase/term boosts, on-chip facet counts) runs on the virtual CPU
-device backend here and on the real TPU in production — the code path is
+1:n/phrase/term boosts, on-device facet counts) runs on the virtual CPU
+device backend here and on the GPU in production — the code path is
 identical (jnp vs np dispatch in the executor)."""
 
 import numpy as np

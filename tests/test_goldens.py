@@ -1,6 +1,6 @@
 """Frozen-golden parity: request -> top-10 results pinned in goldens.json.
 
-Ranking/scoring semantics must not drift silently (round-2 VERDICT item 8).
+Ranking/scoring semantics must not drift silently.
 The Rust reference itself cannot run in this image (no cargo/rustc;
 jmdict.json is an LFS stub — see BASELINE.md), so the goldens pin the
 engine's verified behavior from the ported reference suite. Regenerate

@@ -1,7 +1,7 @@
 """Mesh batched serving parity: `search_batch` with a mesh attached routes
 generic-eligible exact trees through ONE sharded program per group
 (`MeshContext.generic_batch`) — per-shard dense planes, sharded boost
-columns, facet matmul + psum, exact ICI top-k merge. Results must match
+columns, facet matmul + psum, exact all_gather top-k merge. Results must match
 the single-process host executor."""
 
 import importlib
@@ -53,7 +53,7 @@ PLAIN_REQUESTS = [
 
 def test_mesh_deep_tree_parity(pers, monkeypatch):
     """Deep (OR-of-ANDs / depth-3) trees ride the batched mesh route
-    (VERDICT r4 #6): the meshdeep signature dispatches tree_dense_deep via
+    too: the meshdeep signature dispatches tree_dense_deep via
     MeshContext.generic_batch — no per-request fallback — and matches the
     host executor exactly, including with filter/boost/facet extras."""
     from test_batch_tree import DEEP_TREE_REQUESTS

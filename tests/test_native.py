@@ -117,7 +117,7 @@ def test_native_parity_large_random():
 
 
 def test_unpaired_surrogate_replaced():
-    """ADVICE round-1: an unpaired \\ud800 escape must not abort the native
+    """An unpaired \\ud800 escape must not abort the native
     build with a UnicodeDecodeError — it decodes as U+FFFD."""
     import veloci_tpu.native as native
 

@@ -1,4 +1,4 @@
-"""TPU-native regex matching: the class-alphabet DFA sweep must agree with
+"""Device regex matching: the class-alphabet DFA sweep must agree with
 Python `re` (the host oracle) for fullmatch and prefix (starts_with)
 semantics, and the device path must be reachable from real requests."""
 
@@ -160,3 +160,25 @@ def test_regex_case_sensitive_verification(monkeypatch):
     host_res = search(req, pers)
     assert dev_res.num_hits == host_res.num_hits == 1
     assert [h.id for h in dev_res.data] == [h.id for h in host_res.data]
+
+
+def test_device_regex_maps_compact_rows_to_term_ids(monkeypatch):
+    """Long (>32 char) terms are absent from the compact sweep matrix, so
+    sweep rows shift against term ids; device matches must map back
+    through the sweep ids (a term after a long one was missed)."""
+    import re
+
+    from veloci_tpu import Persistence
+    from veloci_tpu.search.field_search import _match_regex
+
+    monkeypatch.setenv("VELOCI_REGEX_DEVICE", "1")
+    words = ["a" * 40, "abc", "b" * 35, "abd", "zzz", "abx", "c" * 33, "aby"]
+    p = Persistence.create_from_str(
+        "\n".join('{"t": "%s"}' % w for w in words),
+        '{"t": {"fulltext": {"tokenize": false}}}',
+    )
+    d = p.get_dictionary("t")
+    for pattern in ("ab.", "a.*", ".*"):
+        want = [i for i, t in enumerate(d.terms) if re.fullmatch(pattern, t)]
+        got = _match_regex(p, "t", d, pattern, True, False)
+        assert got.tolist() == want, (pattern, got.tolist(), want)

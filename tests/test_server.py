@@ -188,7 +188,7 @@ def test_concurrent_requests(server):
 
 
 def test_db_name_traversal_rejected(server):
-    """ADVICE round-1: '..%2F..%2Fpath' must not load arbitrary directories."""
+    """'..%2F..%2Fpath' must not load arbitrary directories."""
     srv, _db = server
     port = srv.server_address[1]
     for evil in ("..%2F..%2Fetc", "..", "%2Fabs%2Fpath", "a%5Cb"):

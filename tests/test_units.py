@@ -442,7 +442,8 @@ def test_spill_build_parity(monkeypatch):
 
 
 def test_fused_banded_fuzzy_parity():
-    """fuzzy_search_topk_banded (interpret mode) == XLA-sweep fused step."""
+    """fuzzy_search_topk_banded (the sweep kernel at Q=1, interpret mode)
+    == XLA-sweep fused step."""
     import numpy as np
     import jax.numpy as jnp
 
@@ -519,8 +520,8 @@ def test_spill_csr_from_pairs_parity(monkeypatch):
 
 
 def test_batched_banded_fuzzy_parity():
-    """batched_fuzzy_search_topk_banded (interpret) == per-query XLA step,
-    including the total_postings overflow report."""
+    """batched_fuzzy_search_topk_banded (the sweep kernel, interpret mode)
+    == per-query XLA step, including the total_postings overflow report."""
     import numpy as np
     import jax.numpy as jnp
 
@@ -593,7 +594,7 @@ def test_batched_banded_fuzzy_parity():
 def test_explain_plan_renders_compiler_structure():
     """explain_plan shows the executed-plan structure: dedup cache reuse,
     the once-computed filter broadcast, the 1:n boost split and the chosen
-    execution path (round-2 VERDICT item 10)."""
+    execution path."""
     from veloci_tpu import Persistence, Request
     from veloci_tpu.search.executor import explain_plan
 
@@ -684,49 +685,158 @@ def test_native_radix_sorts_match_numpy():
         assert np.array_equal(k3, k[order]) and np.array_equal(v3, v[order])
 
 
-def test_dynlen_banded_batch_parity():
-    """The dynamic-query-length banded batch sweep == the static 32-step
-    unroll, across edge lengths (qlen 0 pad rows, 1, max 31) and bands."""
+def _edge_dictionary():
+    """Dictionary + queries at the kernel's edge lengths (0, 1, 31, 32)."""
     import numpy as np
-    import jax.numpy as jnp
 
     from veloci_tpu.ops.levenshtein import encode_query
-    from veloci_tpu.ops.pallas_levenshtein import (
-        levenshtein_sweep_pallas_banded_batch,
-    )
 
-    rng = np.random.default_rng(17)
     words = (
         [f"w{i:03d}" for i in range(300)]
-        + ["a", "ab", "hello", "help", "hells", "x" * 31, "x" * 32]
+        + ["a", "ab", "hello", "help", "hells", "x" * 31, "x" * 32, "x" * 30]
+        + ["xy" * 16, "y" + "x" * 31]
     )
-    n_pad = 4096
+    n_pad = 1024
     chars = np.zeros((n_pad, 32), np.uint16)
     lens = np.zeros(n_pad, np.int32)
     for i, w in enumerate(words):
         for j, ch in enumerate(w[:32]):
             chars[i, j] = ord(ch)
         lens[i] = len(w)
-    chars_t = jnp.asarray(np.ascontiguousarray(chars.T))
-    lens_j = jnp.asarray(lens)
-
-    qterms = ["", "a", "w01", "hela", "x" * 31, "w0015"]
-    queries = np.zeros((8, 32), np.uint16)
-    qlens = np.zeros(8, np.int32)
+    qterms = ["", "a", "w01", "hela", "x" * 31, "x" * 32, "w0015", "xy" * 16]
+    queries = np.zeros((len(qterms), 32), np.uint16)
+    qlens = np.zeros(len(qterms), np.int32)
     for row, t in enumerate(qterms):
-        q, ql = encode_query(t)
-        queries[row] = q
-        qlens[row] = ql
-    qj, lj = jnp.asarray(queries), jnp.asarray(qlens)
+        queries[row], qlens[row] = encode_query(t)
+    return chars, lens, queries, qlens
+
+
+def test_dynlen_banded_batch_parity():
+    """The banded sweep kernel (interpret mode) == levenshtein_sweep, bit
+    for bit: distances wherever they are <= band (_BIG beyond), prefix
+    flags everywhere, at query lengths 0, 1, 31 and 32, for both bands."""
     for band in (2, 4):
-        a = levenshtein_sweep_pallas_banded_batch(
-            chars_t, lens_j, qj, lj, interpret=True, band=band, dyn=False
+        _check_band_parity(band)
+
+
+def _check_band_parity(band):
+    import numpy as np
+    import jax.numpy as jnp
+
+    from veloci_tpu.ops.levenshtein import levenshtein_sweep
+    from veloci_tpu.ops.pallas_levenshtein import _BIG, banded_sweep
+
+    chars, lens, queries, qlens = _edge_dictionary()
+    assert set(qlens.tolist()) >= {0, 1, 31, 32}
+    dist, pref = banded_sweep(
+        jnp.asarray(np.ascontiguousarray(chars.T)), jnp.asarray(lens),
+        jnp.asarray(queries), jnp.asarray(qlens), band=band, interpret=True,
+    )
+    assert dist.dtype == jnp.int32 and pref.dtype == jnp.bool_
+    for row in range(len(qlens)):
+        d, _pd, p = levenshtein_sweep(
+            jnp.asarray(chars), jnp.asarray(lens), jnp.asarray(queries[row]),
+            jnp.int32(qlens[row]),
         )
-        b = levenshtein_sweep_pallas_banded_batch(
-            chars_t, lens_j, qj, lj, interpret=True, band=band, dyn=True
+        d = np.asarray(d)
+        np.testing.assert_array_equal(
+            np.asarray(dist[row]), np.where(d <= band, d, _BIG)
         )
-        for x, y in zip(a, b):
-            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+        np.testing.assert_array_equal(np.asarray(pref[row]), np.asarray(p))
+
+
+@pytest.mark.parametrize("q", [1, 3, 40])
+def test_banded_sweep_pads_queries_and_terms(q):
+    """Query and term axes that are not multiples of the kernel blocks pad
+    inside the wrapper and slice back: shapes [Q, N] out, pad rows never
+    leak into real rows. Q=1 is the single-query call."""
+    import numpy as np
+    import jax.numpy as jnp
+
+    from veloci_tpu.ops.pallas_levenshtein import banded_sweep
+
+    chars, lens, queries, qlens = _edge_dictionary()
+    n = 700  # not a multiple of the 256-term block
+    rows = np.arange(q) % len(qlens)
+    dist, pref = banded_sweep(
+        jnp.asarray(np.ascontiguousarray(chars[:n].T)), jnp.asarray(lens[:n]),
+        jnp.asarray(queries[rows]), jnp.asarray(qlens[rows]), band=2,
+        interpret=True,
+    )
+    assert dist.shape == (q, n) and pref.shape == (q, n)
+    full, full_p = banded_sweep(
+        jnp.asarray(np.ascontiguousarray(chars.T)), jnp.asarray(lens),
+        jnp.asarray(queries), jnp.asarray(qlens), band=2, interpret=True,
+    )
+    np.testing.assert_array_equal(np.asarray(dist), np.asarray(full)[rows, :n])
+    np.testing.assert_array_equal(np.asarray(pref), np.asarray(full_p)[rows, :n])
+
+
+def test_banded_block_q_fills_the_card():
+    """Queries per program grow only while the grid keeps enough programs
+    to fill the card, and never past the query count."""
+    from veloci_tpu.ops.pallas_levenshtein import _MIN_PROGRAMS, _block_q
+
+    assert _block_q(1, 4096) == 1
+    assert _block_q(128, 8) == 1  # small window: one query per program
+    big = _block_q(128, 4096)  # 1M-term dictionary
+    assert big == 16 and 4096 * (128 // big) >= _MIN_PROGRAMS
+    for q, nb in [(64, 256), (128, 256), (3, 4096), (64, 1)]:
+        bq = _block_q(q, nb)
+        assert 1 <= bq <= max(q, 1)
+        assert bq == 1 or nb * -(-q // bq) >= _MIN_PROGRAMS
+
+
+@pytest.mark.parametrize(
+    "platform,route", [("gpu", "kernel"), ("cpu", "xla"), ("metal", None)]
+)
+def test_sweep_route_by_platform(monkeypatch, platform, route):
+    """gpu -> the kernel, cpu -> the XLA sweep, anything else -> an error
+    (no silent fallback)."""
+    import jax
+
+    from veloci_tpu.ops import pallas_levenshtein as pk
+
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    if route is None:
+        with pytest.raises(RuntimeError, match=platform):
+            pk.sweep_route()
+        with pytest.raises(RuntimeError):
+            pk.use_banded_kernel(2)
+        return
+    assert pk.sweep_route() == route
+    assert pk.use_banded_kernel(2) is (route == "kernel")
+    assert pk.use_banded_kernel(4) is (route == "kernel")
+    # starts_with and distances past the widest band stay on the XLA sweep
+    assert pk.use_banded_kernel(5) is False
+    assert pk.use_banded_kernel(1, starts_with=True) is False
+
+
+def test_sweep_kernel_error_propagates(monkeypatch):
+    """With the kernel route chosen, a kernel failure fails the request: no
+    degrade to the XLA sweep."""
+    from veloci_tpu import Persistence, Request
+    from veloci_tpu.ops import pallas_levenshtein as pk
+    from veloci_tpu.search import executor as ex
+    from veloci_tpu.search.field_search import prefetch_fuzzy_matches
+
+    def boom(*_a, **_k):
+        raise RuntimeError("kernel compile failed")
+
+    monkeypatch.setattr(pk, "sweep_route", lambda: "kernel")
+    monkeypatch.setattr(pk, "banded_sweep", boom)
+    monkeypatch.setattr(ex, "SMALL_DOCS", 0)
+    pers = Persistence.create_from_str(
+        "\n".join('{"t": "hello w%d"}' % i for i in range(50)), "{}"
+    )
+    with pytest.raises(RuntimeError, match="kernel compile failed"):
+        prefetch_fuzzy_matches(pers, [("t", "helo", 1, False)])
+    req = Request.from_dict(
+        {"search_req": {"search": {"terms": ["helo"], "path": "t",
+                                   "levenshtein_distance": 1}}}
+    )
+    with pytest.raises(RuntimeError, match="kernel compile failed"):
+        ex.search(req, pers)
 
 
 def test_tokenizer_pieces_matches_iter():

@@ -1,11 +1,11 @@
-"""veloci_tpu — a TPU-native full-text search engine.
+"""veloci_tpu — a full-text search engine on one or more accelerators.
 
 A from-scratch rebuild of the capabilities of the reference engine
-(PSeitz/veloci, a Rust single-node search library) designed for TPUs:
-immutable columnar indices resident in HBM, batched Levenshtein dictionary
-sweeps, dense per-document score vectors with XLA-fused set ops and boosts,
-and `jax.sharding`-based multi-chip sharding (per-shard top-k merged over
-ICI).
+(PSeitz/veloci, a Rust single-node search library) in JAX: immutable
+columnar indices resident in device memory, batched Levenshtein dictionary
+sweeps (a Pallas kernel on NVIDIA GPUs), dense per-document score vectors
+with XLA-fused set ops and boosts, and `jax.sharding`-based multi-device
+sharding (per-shard top-k merged with collectives).
 
 Public surface:
 

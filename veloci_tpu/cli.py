@@ -232,13 +232,10 @@ def main(argv=None) -> None:
 
     args = ap.parse_args(argv)
     # persistent executable cache: serving replicas and repeated CLI runs
-    # start warm instead of recompiling minutes-long TPU kernels
-    try:
-        from .compile_cache import enable_compile_cache
+    # start warm instead of recompiling
+    from .compile_cache import enable_compile_cache
 
-        enable_compile_cache()
-    except Exception:
-        pass
+    enable_compile_cache()
     args.fn(args)
 
 

@@ -1,67 +1,56 @@
-"""Persistent XLA executable cache for veloci_tpu entry points.
+"""Persistent XLA compilation cache for the serving entry points.
 
-TPU compiles are the dominant cold-start cost: a banded Mosaic sweep
-kernel takes minutes to compile, and a serving process touches a handful
-of them (one per dictionary length-window width) plus dozens of fused
+Compiles are the dominant cold-start cost of a serving process: the banded
+sweep kernel at each dictionary length-window width plus dozens of fused
 search programs. JAX's persistent compilation cache serialises compiled
-executables to disk keyed by (HLO, backend, flags), so every process
-after the first deserialises in ~100 ms instead of recompiling — the
-standard deployment posture for TPU serving fleets (one warm job
-populates the cache; replicas start warm).
+executables to disk keyed by (HLO, backend, flags), so every process after
+the first loads them instead of recompiling.
 
-Opt-out with VELOCI_COMPILE_CACHE=0; relocate with
-VELOCI_COMPILE_CACHE_DIR. The default directory lives inside the repo
-(``.jax_cache``, gitignored) so benchmark reruns on the same checkout hit
-it. Called by bench.py, the CLI, and the tools/ scripts before the first
-jax dispatch; safe to call multiple times.
+Where the cache lives:
 
-Reference parity note: the reference engine (CUDA/Rust) has no compile
-step at all — persisting executables is how a jit-compiled framework
-meets its cold-start bar (BASELINE.md cold-start rows).
+* ``JAX_COMPILATION_CACHE_DIR`` set: JAX reads it itself, and nothing is
+  set here.
+* otherwise: ``.jax_cache`` at the root of the checkout (gitignored), a
+  fixed path, so reruns on one checkout hit it.
+
+CPU-only processes (``JAX_PLATFORMS=cpu``: the tests, the host reference)
+get no cache from here: CPU executables are pinned to the machine's
+features, and CPU compiles are fast. ``VELOCI_COMPILE_CACHE=0`` disables.
+
+The reference engine (Rust, CPU) has no compile step at all; persisting
+executables is how a jit-compiled engine meets its cold-start bar.
 """
 
 from __future__ import annotations
 
 import os
 
-_enabled_path: str | None = None
+__all__ = ["enable_compile_cache", "DEFAULT_DIR"]
+
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache"
+)
 
 
-def enable_compile_cache(path: str | None = None) -> str | None:
-    """Point JAX's persistent compilation cache at ``path`` and return it
-    (None when disabled via VELOCI_COMPILE_CACHE=0 or when the directory
-    cannot be created). Idempotent."""
-    global _enabled_path
-    if os.environ.get("VELOCI_COMPILE_CACHE", "1") == "0":
-        return None
-    if _enabled_path is not None:
-        return _enabled_path
-    if path is None:
-        path = os.environ.get("VELOCI_COMPILE_CACHE_DIR") or os.path.join(
-            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-            ".jax_cache",
-        )
-    try:
-        os.makedirs(path, exist_ok=True)
-    except OSError:
+def enable_compile_cache() -> str | None:
+    """Turn on the persistent compilation cache before the first compile
+    and return its directory (None when off). Idempotent and cheap; it
+    never initialises a backend, so host-only processes stay off the
+    device."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    if os.environ.get("VELOCI_COMPILE_CACHE") == "0":
         return None
     import jax
 
-    try:
-        jax.config.update("jax_compilation_cache_dir", path)
-    except Exception:
+    platforms = os.environ.get("JAX_PLATFORMS") or str(
+        jax.config.jax_platforms or ""
+    )
+    if platforms.split(",")[0] == "cpu":
         return None
-    # cache anything that took >=1s to compile (the default threshold
-    # skips sub-second compiles, which is the right trade here too)
-    for knob, val in (
-        ("jax_persistent_cache_min_compile_time_secs", 1.0),
-        # single-chip + virtual-mesh runs both benefit; 0 disables the
-        # min-process guard some versions apply to multi-host setups
-        ("jax_persistent_cache_min_entry_size_bytes", 0),
-    ):
-        try:
-            jax.config.update(knob, val)
-        except Exception:
-            pass  # knob name varies across jax versions; best-effort
-    _enabled_path = path
-    return path
+    if jax.config.jax_compilation_cache_dir != DEFAULT_DIR:
+        os.makedirs(DEFAULT_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)
+        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.3)
+    return DEFAULT_DIR

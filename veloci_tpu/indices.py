@@ -1,9 +1,8 @@
 """Columnar index structures.
 
 The reference stores relations as vint-compressed ``.indirect``/``.data`` file
-pairs plus byte-packed direct arrays (reference: src/indices/). The TPU-native
-representation replaces all of them with flat numpy arrays that upload to HBM
-unchanged:
+pairs plus byte-packed direct arrays (reference: src/indices/). Here all of
+them become flat numpy arrays that upload to device memory unchanged:
 
 * :class:`Csr` — 1:n map ``key -> [values]`` as ``offsets[num_keys+1]`` +
   ``values[nnz]`` (replaces `Indirect`, src/indices/indirect/indirect.rs).

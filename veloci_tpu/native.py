@@ -76,8 +76,9 @@ def _so_path() -> Path:
 
     The library is never committed and never trusted by mtime (checkout
     mtimes are meaningless): a given source text maps to exactly one cached
-    binary, so staleness detection is content-based. Override the cache dir
-    with VELOCI_NATIVE_CACHE.
+    binary, so staleness detection is content-based. The default cache is
+    ``native/build/`` in the checkout (gitignored); VELOCI_NATIVE_CACHE
+    overrides it.
     """
     import hashlib
 
@@ -88,15 +89,7 @@ def _so_path() -> Path:
         if src.exists():
             h.update(src.read_bytes())
     digest = h.hexdigest()[:16] if (_NATIVE_DIR / _SOURCES[0]).exists() else "nosrc"
-    cache = Path(
-        os.environ.get(
-            "VELOCI_NATIVE_CACHE",
-            os.path.join(
-                os.environ.get("XDG_CACHE_HOME", os.path.expanduser("~/.cache")),
-                "veloci_tpu",
-            ),
-        )
-    )
+    cache = Path(os.environ.get("VELOCI_NATIVE_CACHE", _NATIVE_DIR / "build"))
     return cache / f"libveloci_native-{digest}.so"
 
 _CONFIG_CB = ctypes.CFUNCTYPE(

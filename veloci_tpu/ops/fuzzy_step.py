@@ -3,7 +3,7 @@ posting resolve -> top-k, in ONE XLA program (no host round trip). Returns
 (ids, scores, num_hits, total_matches); callers fall back to the generic
 path when total_matches exceeds the static ``max_terms`` selection window.
 
-This is the TPU-native replacement for the reference's FST x Levenshtein-DFA
+This is the device replacement for the reference's FST x Levenshtein-DFA
 product walk followed by posting iteration (search_field.rs:277-504): the
 query is swept against the whole packed dictionary, the best ``max_terms``
 matches are selected on-device with `top_k`, and their postings resolve into
@@ -63,10 +63,10 @@ def _select_resolve_sorted(
 ):
     """Shared tail: match -> term score -> on-device select -> resolve ->
     sorted-run candidates. `dist` may come from the XLA sweep or the banded
-    Pallas kernel.
+    sweep kernel.
 
-    Replaces the round-2 dense-plane `segment_max` (a ~10-30 ns/element
-    serial scatter into ``[num_docs]`` + a full-corpus top-k): the gathered
+    Replaces a dense-plane `segment_max` (a scatter into ``[num_docs]`` +
+    a full-corpus top-k): the gathered
     postings sort ONCE by (anchor desc, score desc) — a vectorised bitonic
     network over ``[capacity]`` — and each anchor's first row IS its
     dedup-max (resolve_token_to_anchor's sort+dedup, search_field.rs:451-465).
@@ -90,9 +90,8 @@ def _select_resolve_sorted(
 
     # select best max_terms matched terms on-device. The two-stage block
     # selection (ops/topk.topk_positions) replaces a flat
-    # `lax.top_k(masked, 256)` — measured 111 us/query over a 117k-term
-    # dictionary, more than the Levenshtein sweep itself; the block pass is
-    # one streaming max + a small top_k
+    # `lax.top_k(masked, 256)`; the block pass is one streaming max + a
+    # small top_k
     from .topk import topk_positions
 
     sel_ids, sel_scores = topk_positions(masked, max_terms)
@@ -107,8 +106,7 @@ def _select_resolve_sorted(
     term_scores = jnp.where(sel_valid, sel_scores, 0.0).astype(jnp.float32)
 
     # resolve postings. Segment mapping via scatter+cumsum fills
-    # (ops/postings.py) — searchsorted + small-table gathers lower to
-    # serial loops on TPU (measured: they were 85% of the fused fuzzy cost)
+    # (ops/postings.py) instead of searchsorted + small-table gathers
     from .postings import fill_segments_f32, fill_segments_i32
 
     t_pad = max_terms
@@ -126,7 +124,6 @@ def _select_resolve_sorted(
     in_range = idx < total
     if packed is not None:
         # interleaved [nnz, 2] rows: ONE 8-byte gather per posting
-        # (measured 2.1-4.7x over two separate gathers on v5e)
         src = jnp.clip(jnp.where(in_range, src, 0), 0, packed.shape[0] - 1)
         rows = packed[src]
         a = jnp.where(in_range, rows[:, 0], num_docs)
@@ -226,16 +223,18 @@ def fuzzy_search_topk_banded(
     sweep_ids=None,
     band: int = 4,
 ):
-    """Fused fuzzy step over the banded Pallas sweep: exact distances within
-    the +-band diagonal with zero HBM DP state (the XLA sweep spills at
-    large N), then the same select/resolve/top-k tail — still ONE program.
+    """Fused fuzzy step over the banded sweep kernel (a batch of one):
+    exact distances within the +-band diagonal with no DP state in device
+    memory, then the same select/resolve/top-k tail — still ONE program.
     ``band`` must be >= the runtime distance; d<=2 callers pass band=2 for
     ~45% less DP."""
-    from .pallas_levenshtein import levenshtein_sweep_pallas_banded
+    from .pallas_levenshtein import banded_sweep
 
-    dist, _prefix_dist, is_prefix = levenshtein_sweep_pallas_banded(
-        chars_t, term_lens, query, query_len, interpret=interpret, band=band
+    dist, is_prefix = banded_sweep(
+        chars_t, term_lens, query[None], jnp.reshape(query_len, (1,)),
+        band=band, interpret=interpret,
     )
+    dist, is_prefix = dist[0], is_prefix[0]
     return _select_resolve_topk(
         dist, is_prefix, distance, offsets, anchors, scores01,
         max_terms, capacity, num_docs, k, packed=packed, sweep_ids=sweep_ids,
@@ -264,16 +263,14 @@ def batched_fuzzy_search_topk_banded(
     sweep_ids=None,
     band: int = 4,
 ):
-    """A batch of fuzzy queries through ONE banded Pallas sweep + vmapped
-    select/resolve/top-k tail. The dictionary is read from HBM once per
-    BATCH (the chars tile stays in VMEM across the query grid axis) instead
-    of once per query — the XLA sweep costs ~5 ms/query at 40k terms; this
-    path amortises to well under 1 ms/query. ``band`` must be >= every
-    runtime distance in the batch; d<=2 batches pass band=2 (~45% less DP)."""
-    from .pallas_levenshtein import levenshtein_sweep_pallas_banded_batch
+    """A batch of fuzzy queries through ONE banded sweep kernel + vmapped
+    select/resolve/top-k tail. The DP state stays in registers instead of
+    device memory. ``band`` must be >= every runtime distance in the batch;
+    d<=2 batches pass band=2 (~45% less DP)."""
+    from .pallas_levenshtein import banded_sweep
 
-    dist, _prefix_dist, is_prefix = levenshtein_sweep_pallas_banded_batch(
-        chars_t, term_lens, queries, query_lens, interpret=interpret, band=band
+    dist, is_prefix = banded_sweep(
+        chars_t, term_lens, queries, query_lens, band=band, interpret=interpret
     )
 
     def tail(d, p, dd):
@@ -341,7 +338,7 @@ def batched_fuzzy_generic_topk(
     filter_idx,  # [Q] int32 into filter_masks | None
     phrase_anchors,  # [Q, P_pad] int32 (pad num_docs) | None
     boost_arrays,  # tuple of (bv, pres, expr_add|None)
-    facet_mats,  # tuple of M [num_docs, G_i] bf16
+    facet_mats,  # tuple of M [num_docs, G_i] f32
     max_terms: int,
     capacity: int,
     num_docs: int,
@@ -359,15 +356,15 @@ def batched_fuzzy_generic_topk(
     fuzzy kernels (cost O(capacity), no dense plane); extras read at the
     candidate anchors only. Same overflow contract (re-dispatch when
     total_matches > max_terms or total_postings > capacity)."""
-    from .generic_step import _precompute_boost
+    from .generic_step import _precompute_boost, facet_counts
     from .tree_step import _apply_boost_gathered
 
     if banded:
-        from .pallas_levenshtein import levenshtein_sweep_pallas_banded_batch
+        from .pallas_levenshtein import banded_sweep
 
-        dist, _pd, is_prefix = levenshtein_sweep_pallas_banded_batch(
-            chars_arg, term_lens, queries, query_lens, interpret=interpret,
-            band=band,
+        dist, is_prefix = banded_sweep(
+            chars_arg, term_lens, queries, query_lens, band=band,
+            interpret=interpret,
         )
     else:
 
@@ -406,13 +403,7 @@ def batched_fuzzy_generic_topk(
                 .at[jnp.where(final > 0, a_s, num_docs)]
                 .add(1.0, mode="drop")[:num_docs]
             )
-            fc = tuple(
-                jnp.dot(
-                    hit_row.astype(jnp.bfloat16), m,
-                    preferred_element_type=jnp.float32,
-                ).astype(jnp.int32)
-                for m in facet_mats
-            )
+            fc = tuple(facet_counts(hit_row, m) for m in facet_mats)
         else:
             fc = ()
         ids, scores = _candidates_topk(a_s, final, k)

@@ -9,7 +9,7 @@ facet counting (`AggregationCollector`, src/facet.rs:95-161) — so that a
 batch of filtered + boosted + faceted queries (BASELINE configs 3-5) costs
 ONE device dispatch instead of one executor walk per request.
 
-TPU-first lowerings:
+Lowerings:
 
 * the query tree evaluates on a per-slot dense plane (segment-max over the
   gathered posting runs) exactly like union/intersect_search_topk;
@@ -19,9 +19,9 @@ TPU-first lowerings:
 * boost columns are resident [num_docs] vectors; each boost family
   precomputes its per-doc factor ONCE per batch (loop-invariant outside the
   vmap) and applies as an elementwise select per query;
-* facet counts are ONE bf16 matmul on the MXU: hits [Q, num_docs] x
-  relation matrix M [num_docs, G] (M[d,g] = #pairs d->g, precomputed) with
-  f32 accumulation — exact integer counts, no scatter.
+* facet counts are ONE matmul: hits [Q, num_docs] x relation matrix
+  M [num_docs, G] (M[d,g] = #pairs d->g, precomputed), f32 operands at
+  full f32 precision — exact integer counts, no scatter (`facet_counts`).
 """
 
 from __future__ import annotations
@@ -43,6 +43,19 @@ __all__ = ["batched_generic_topk"]
 _HIT_EPS = np.float32(1e-30)
 
 
+def facet_counts(hits, m):
+    """Exact int32 facet counts ``hits @ m``: hit weights [..., num_docs]
+    (0/1, or small integers) against the f32 relation matrix m
+    [num_docs, G] at Precision.HIGHEST. Integer sums are exact in f32 below
+    2^24. Not bf16: on an H100 the bf16 product with f32 accumulation lost
+    1-2 counts per row once XLA fused the hit producer into the GEMM."""
+    return jnp.dot(
+        hits.astype(jnp.float32), m,
+        precision=jax.lax.Precision.HIGHEST,
+        preferred_element_type=jnp.float32,
+    ).astype(jnp.int32)
+
+
 def _precompute_boost(bv, pres, spec):
     """Per-doc boost factor arrays, computed once per batch.
 
@@ -54,7 +67,7 @@ def _precompute_boost(bv, pres, spec):
     For the common modes (mul/add, no skip_when_score) the presence mask
     FOLDS into the factor arrays (absent -> multiplier 1 / adder 0), so the
     gathered-candidate kernels read ONE array per boost instead of three —
-    per-element gathers are the dominant kernel cost on TPU.
+    per-element gathers dominate these kernels.
     """
     fun, param, skip, expr_add = spec
     b = bv + jnp.float32(param or 0.0)
@@ -210,7 +223,7 @@ def batched_generic_topk(
     filter_idx: Optional[jax.Array],  # [Q] int32 into filter_masks | None
     phrase_anchors: Optional[jax.Array],  # [Q, P_pad] int32 (pad num_docs) | None
     boost_arrays: Tuple,  # tuple of (bv [num_docs] f32, pres [num_docs] bool, expr_add|None)
-    facet_mats: Tuple,  # tuple of M [num_docs, G_i] bf16
+    facet_mats: Tuple,  # tuple of M [num_docs, G_i] f32
     capacity: int,
     num_docs: int,
     k: int,
@@ -255,11 +268,7 @@ def batched_generic_topk(
         term_ids, term_scores, term_slots, filter_idx, phrase_anchors
     )
 
-    hits = (dense_b > 0).astype(jnp.bfloat16)
     num_hits = jnp.sum(dense_b > 0, axis=1, dtype=jnp.int32)
-    facet_counts = tuple(
-        jnp.dot(hits, m, preferred_element_type=jnp.float32).astype(jnp.int32)
-        for m in facet_mats
-    )
+    counts = tuple(facet_counts(dense_b > 0, m) for m in facet_mats)
     ids, scores = jax.vmap(lambda d: topk_dense_exact(d, k))(dense_b)
-    return ids, scores, num_hits, facet_counts
+    return ids, scores, num_hits, counts

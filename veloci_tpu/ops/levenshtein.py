@@ -2,7 +2,7 @@
 
 The reference intersects a Levenshtein DFA with its FST
 (src/search/search_field.rs:54-99) and falls back to a full DP distance for
-scoring (:705-732 `distance`). TPU-native, both collapse into ONE batched DP
+scoring (:705-732 `distance`). Here both collapse into ONE batched DP
 sweep: the query is compared against *all* terms simultaneously as a
 vectorised edit-distance DP over the padded ``[N, L]`` char matrix.
 
@@ -18,7 +18,9 @@ has a sequential dependency through ``new[j-1]``; it is equivalent to
 and ``cummin`` is an associative scan — so each query character costs
 O(log L) vector ops over the whole dictionary instead of O(L) sequential
 steps. Total cost: ``MAX_QUERY * log2(L+1)`` fused elementwise passes over an
-``[N, L+1]`` i32 array, which XLA maps straight onto the VPU.
+``[N, L+1]`` i32 array. This is the plain XLA version; on a GPU the
+banded kernel (ops/pallas_levenshtein.py) serves every match within
+distance 4.
 
 Outputs per term:
 * ``dist`` — true char-level Levenshtein distance (the scoring distance used
@@ -111,9 +113,8 @@ def select_matches(
 ):
     """Top-M match selection from precomputed sweep outputs (device-side).
 
-    Uses the two-stage block selection (ops/topk.topk_positions) — a flat
-    `lax.top_k` over the whole dictionary was measured at ~111 us/query at
-    117k terms, dominating the fuzzy path."""
+    Uses the two-stage block selection (ops/topk.topk_positions) instead of
+    a flat `lax.top_k` over the whole dictionary."""
     from .topk import topk_positions
 
     match = crit <= distance
@@ -144,7 +145,7 @@ def sweep_select(
 ):
     """Sweep + ON-DEVICE match selection: only the best ``max_matches``
     matched terms (by distance) come back to the host — O(M) transfer
-    instead of O(N) (which dominates query latency over a thin host link).
+    instead of O(N).
 
     Returns (sel_ids [M] (-1 pad), sel_dist [M], sel_prefix [M] bool,
     total_matches scalar).

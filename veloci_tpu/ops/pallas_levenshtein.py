@@ -1,16 +1,25 @@
-"""Pallas TPU kernel for the batched Levenshtein dictionary sweep.
+"""Banded Levenshtein dictionary sweep as a Pallas kernel for NVIDIA GPUs
+(Triton route), and the one place that decides which sweep a request runs.
 
-The XLA formulation (ops/levenshtein.py) materialises `[N, 33]` DP rows in
-HBM between fused passes; this kernel tiles the dictionary into VMEM-resident
-term tiles (chars transposed to ``[L, N]`` so terms ride the 128-lane axis)
-and runs the whole DP in VMEM: a `fori_loop` over query chars with the
-33-step row relaxation fully unrolled — ~1k VPU ops per tile, zero HBM
-traffic for intermediates.
+The XLA sweep (ops/levenshtein.py) moves a ``[Q, N, 33]`` int32 DP state
+through device memory at every one of its query-character steps. Matching
+only needs distances up to d <= 4, and any edit path that leaves the
+``|i - j| <= band`` diagonal costs more than ``band`` (Ukkonen), so the DP
+here keeps just the ``2 * band + 1`` band cells per (query, term) in
+registers across the loop over query characters.
 
-Outputs per term: the full-term edit distance and the min distance over term
-prefixes (the `starts_with()` automaton criterion). The surrounding jittable
-wrapper computes the is-prefix flag with plain jnp and falls back to the XLA
-sweep off-TPU (tests run it in interpret mode).
+Layout: the char matrix is transposed to ``chars_t [32, N] uint16`` so each
+character row loads contiguously along the term axis. One program owns a
+block of ``block_n`` terms and ``block_q`` queries; it loops over its
+queries, and for each one runs a ``fori_loop`` to that query's own length.
+The band's char rows roll: each step loads one new row of the block and
+drops the oldest. The prefix flag falls out of the same loop: the band's
+diagonal cell compares chars[i - 1] with query char i - 1. Programs share
+nothing.
+
+Output contract: ``dist[q, t]`` is the exact distance where it is <= band,
+``_BIG`` otherwise (and for empty/pad terms); ``is_prefix[q, t]`` says the
+term starts with the query.
 """
 
 from __future__ import annotations
@@ -21,442 +30,162 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
 from .levenshtein import MAX_QUERY_CHARS
 
-__all__ = [
-    "levenshtein_sweep_pallas",
-    "levenshtein_sweep_pallas_banded",
-    "levenshtein_sweep_pallas_banded_batch",
-]
+__all__ = ["D_BAND", "banded_sweep", "sweep_route", "use_banded_kernel"]
 
 _BIG = np.int32(1 << 20)
-TILE_N = 1024
 L = 32  # term width == indices.MAX_TERM_CHARS
+D_BAND = 4  # widest band compiled; distances above it take the XLA sweep
+BLOCK_N = 256
+# enough programs for four waves over an H100's 132 SMs before programs
+# start sharing a term block across several queries
+_MIN_PROGRAMS = 4 * 132
+_MAX_BLOCK_Q = 16
 
 
-def _kernel(query_ref, qlen_ref, chars_ref, len_ref, dist_ref, prefix_ref):
-    """One term tile: chars_ref [L, TILE_N], len_ref [1, TILE_N]."""
-    qlen = qlen_ref[0]
-    chars = chars_ref[:, :].astype(jnp.int32)  # [L, TILE_N]
-    lens = len_ref[0, :]  # [TILE_N]
-
-    # D rows stacked [L+1, TILE_N]; D[j] = lev(query_prefix, term[:j])
-    init = jax.lax.broadcasted_iota(jnp.int32, (L + 1, TILE_N), 0)
-
-    def step(i, D):
-        qc = query_ref[i]
-        new_rows = [jnp.full((TILE_N,), i + 1, dtype=jnp.int32)]
-        prev = new_rows[0]
-        for j in range(1, L + 1):
-            cost = (chars[j - 1, :] != qc).astype(jnp.int32)
-            cand = jnp.minimum(D[j, :] + 1, D[j - 1, :] + cost)
-            prev = jnp.minimum(prev + 1, cand)
-            new_rows.append(prev)
-        D_new = jnp.stack(new_rows, axis=0)
-        return jnp.where(i < qlen, D_new, D)
-
-    D = jax.lax.fori_loop(0, MAX_QUERY_CHARS, step, init)
-
-    js = jax.lax.broadcasted_iota(jnp.int32, (L + 1, TILE_N), 0)
-    lens_b = lens[None, :]
-    dist = jnp.sum(jnp.where(js == lens_b, D, 0), axis=0)
-    prefix_dist = jnp.min(jnp.where(js <= lens_b, D, _BIG), axis=0)
-    valid = lens > 0
-    dist_ref[0, :] = jnp.where(valid, dist, _BIG)
-    prefix_ref[0, :] = jnp.where(valid, prefix_dist, _BIG)
+def sweep_route() -> str:
+    """``"kernel"`` on a GPU, ``"xla"`` on the CPU (tests). Any other
+    platform is an error: no silent fallback to a sweep nobody measured."""
+    platform = jax.default_backend()
+    if platform == "gpu":
+        return "kernel"
+    if platform == "cpu":
+        return "xla"
+    raise RuntimeError(f"no Levenshtein sweep route for platform {platform!r}")
 
 
-@functools.partial(jax.jit, static_argnames=("interpret",))
-def levenshtein_sweep_pallas(
-    chars_t: jax.Array,  # [L, N_pad] uint16 — TRANSPOSED char matrix
-    term_lens: jax.Array,  # [N_pad] int32
-    query: jax.Array,  # [MAX_QUERY_CHARS] uint16
-    query_len: jax.Array,  # scalar int32
-    interpret: bool = False,
-):
-    l, n = chars_t.shape
-    assert l == L and n % TILE_N == 0
-    grid = (n // TILE_N,)
-
-    dist, prefix_dist = pl.pallas_call(
-        _kernel,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,  # query chars + length in SMEM
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((L, TILE_N), lambda t, *_: (0, t)),
-                pl.BlockSpec((1, TILE_N), lambda t, *_: (0, t)),
-            ],
-            out_specs=[
-                pl.BlockSpec((1, TILE_N), lambda t, *_: (0, t)),
-                pl.BlockSpec((1, TILE_N), lambda t, *_: (0, t)),
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-        ],
-        interpret=interpret,
-    )(
-        query.astype(jnp.int32),
-        query_len.reshape(1).astype(jnp.int32) if query_len.ndim == 0 else query_len.astype(jnp.int32),
-        chars_t,
-        term_lens.reshape(1, n),
+def use_banded_kernel(max_distance: int, starts_with: bool = False) -> bool:
+    """Whether a sweep at ``max_distance`` runs the banded kernel. The XLA
+    sweep keeps ``starts_with`` (it needs full-term distances beyond the
+    band) and distances above ``D_BAND``."""
+    return (
+        sweep_route() == "kernel" and not starts_with and max_distance <= D_BAND
     )
-    dist = dist[0]
-    prefix_dist = prefix_dist[0]
-
-    # is-prefix flag (plain jnp; one fused comparison pass)
-    pos = jnp.arange(l, dtype=jnp.int32)
-    eq = (chars_t.astype(jnp.int32) == query[:l].astype(jnp.int32)[:, None]) | (
-        pos[:, None] >= query_len
-    )
-    is_prefix = jnp.all(eq, axis=0) & (term_lens >= query_len) & (term_lens > 0)
-    return dist, prefix_dist, is_prefix
 
 
-# --------------------------------------------------------------------------
-# Banded variant: edit distances are only needed up to d<=4 for matching, so
-# the DP restricts to the |i-j| <= D_BAND diagonal band — 9 relaxations per
-# query char instead of 33. Distances beyond the band report as _BIG (they
-# cannot match). NOT valid for starts_with scoring, where matched terms can
-# have full-term distance > d (the wrapper in field_search keeps the
-# full-width sweep for that case).
-# --------------------------------------------------------------------------
+def _sweep_kernel(band, q_ref, ql_ref, chars_ref, len_ref, dist_ref, pre_ref):
+    """q_ref [bq, 32] i32, ql_ref [bq] i32, chars_ref [32, bn] u16,
+    len_ref [bn] i32 -> dist_ref [bq, bn] i32, pre_ref [bq, bn] i8."""
+    w = 2 * band + 1
+    bq, bn = dist_ref.shape
+    lens = len_ref[...]
+    big = jnp.full((bn,), _BIG, jnp.int32)
 
-D_BAND = 4
-_W = 2 * D_BAND + 1
+    def char_row(r):
+        return chars_ref[jnp.clip(r, 0, L - 1), :].astype(jnp.int32)
 
+    def one_query(qi, carry):
+        qlen = jnp.minimum(ql_ref[qi], MAX_QUERY_CHARS)
+        # b[k] = D[i][i + k - band]; row i = 0 is D[0][j] = j
+        b0 = tuple(
+            jnp.full((bn,), k - band, jnp.int32) if k >= band else big
+            for k in range(w)
+        )
+        # cell k of step i reads chars[i + k - band - 1]; carry the w - 1
+        # rows step i shares with step i - 1
+        rows0 = tuple(char_row(k - band) for k in range(w - 1))
+        pre0 = jnp.ones((bn,), jnp.int32)
 
-def _kernel_banded(
-    band, query_ref, qlen_ref, chars_ref, len_ref, dist_ref, prefix_ref, chars32
-):
-    D_BAND = band
-    _W = 2 * band + 1
-    qlen = qlen_ref[0]
-    lens = len_ref[0, :]
-    # stage chars as i32 — Mosaic only supports dynamic sublane loads on
-    # 32-bit tiles ((8,128) tiling), not on the u16 input
-    chars32[:, :] = chars_ref[:, :].astype(jnp.int32)
-
-    # B[o] = D[i][i + o - D_BAND]; init row i=0: D[0][j] = j
-    init_rows = []
-    for oi in range(_W):
-        o = oi - D_BAND
-        if o >= 0:
-            init_rows.append(jnp.full((TILE_N,), o, dtype=jnp.int32))
-        else:
-            init_rows.append(jnp.full((TILE_N,), _BIG, dtype=jnp.int32))
-    init = jnp.stack(init_rows, axis=0)  # [_W, TILE_N]
-
-    # fully unrolled over query chars: every chars row index is STATIC, so
-    # Mosaic emits plain vector loads (no dynamic-slice shuffles)
-    B = [init[oi] for oi in range(_W)]
-    for i in range(1, MAX_QUERY_CHARS + 1):
-        qc = query_ref[i - 1]
-        active = i <= qlen
-        prev = jnp.full((TILE_N,), _BIG, dtype=jnp.int32)
-        new_rows = []
-        for oi in range(_W):
-            o = oi - D_BAND
-            j_idx = i + o  # static!
-            if j_idx < 0 or j_idx > L:
-                val = jnp.full((TILE_N,), _BIG, dtype=jnp.int32)
-            elif j_idx == 0:
-                val = jnp.full((TILE_N,), i, dtype=jnp.int32)
-            else:
-                cost = (chars32[j_idx - 1, :] != qc).astype(jnp.int32)
-                up = B[oi + 1] + 1 if oi + 1 < _W else jnp.full((TILE_N,), _BIG, jnp.int32)
-                diag = B[oi] + cost
-                val = jnp.minimum(jnp.minimum(up, diag), prev + 1)
-                val = jnp.minimum(val, _BIG)
-            prev = val
-            new_rows.append(val)
-        B = [jnp.where(active, n_, b_) for n_, b_ in zip(new_rows, B)]
-    B = jnp.stack(B, axis=0)
-
-    # dist = D[qlen][len] when |len - qlen| <= D_BAND
-    off = lens - qlen + D_BAND  # band index of the term end
-    dist = jnp.full((TILE_N,), _BIG, dtype=jnp.int32)
-    prefix_dist = jnp.full((TILE_N,), _BIG, dtype=jnp.int32)
-    for oi in range(_W):
-        o = oi - D_BAND
-        dist = jnp.where(off == oi, B[oi, :], dist)
-        # prefix j = qlen + o must satisfy 0 <= j <= len
-        ok = (qlen + o >= 0) & (qlen + o <= lens)
-        prefix_dist = jnp.minimum(prefix_dist, jnp.where(ok, B[oi, :], _BIG))
-    valid = lens > 0
-    dist_ref[0, :] = jnp.where(valid, dist, _BIG)
-    prefix_ref[0, :] = jnp.where(valid, prefix_dist, _BIG)
-
-
-TILE_N_BATCH = 4096
-
-
-def _kernel_banded_batch_dyn(
-    band, query_ref, qlen_ref, chars_ref, len_ref, dist_ref, prefix_ref, chars32
-):
-    """Dynamic-length variant of `_kernel_banded_batch`: the DP loop over
-    query chars is a ``fori_loop`` bounded by EACH query's actual length
-    instead of a full 32-step unroll. Typical fuzzy traffic is 5-9 chars, so
-    this does ~3-5x less DP per (query, tile). The price: the chars row
-    index ``j = i + o`` becomes dynamic — Mosaic supports dynamic sublane
-    loads on the 32-bit staged tile (the reason the ``chars32`` scratch
-    exists), at slightly higher per-access cost than the static unroll.
-    Semantics are identical (parity-tested in interpret mode)."""
-    D_BAND = band
-    _W = 2 * band + 1
-    nq = dist_ref.shape[0]
-    lens = len_ref[0, :]
-    chars32[:, :] = chars_ref[:, :].astype(jnp.int32)
-
-    def one_query(q, _):
-        qlen = jnp.minimum(qlen_ref[q], MAX_QUERY_CHARS)
-        init_rows = []
-        for oi in range(_W):
-            o = oi - D_BAND
-            if o >= 0:
-                init_rows.append(jnp.full((TILE_N_BATCH,), o, dtype=jnp.int32))
-            else:
-                init_rows.append(jnp.full((TILE_N_BATCH,), _BIG, dtype=jnp.int32))
-        B0 = jnp.stack(init_rows, axis=0)  # [_W, TILE]
-
-        def qstep(i, B):
-            qc = query_ref[q, i - 1]
-            i_vec = jnp.full((TILE_N_BATCH,), 0, dtype=jnp.int32) + i
-            prev = jnp.full((TILE_N_BATCH,), _BIG, dtype=jnp.int32)
-            new_rows = []
-            for oi in range(_W):
-                o = oi - D_BAND
-                j_idx = i + o  # traced scalar
-                row = chars32[jnp.clip(j_idx - 1, 0, L - 1), :]
-                cost = (row != qc).astype(jnp.int32)
-                up = (
-                    B[oi + 1] + 1
-                    if oi + 1 < _W
-                    else jnp.full((TILE_N_BATCH,), _BIG, jnp.int32)
-                )
-                diag = B[oi] + cost
-                val = jnp.minimum(jnp.minimum(up, diag), prev + 1)
-                # j == 0 -> D[i][0] = i; j < 0 or j > L -> outside the DP
-                val = jnp.where(j_idx == 0, i_vec, val)
-                val = jnp.where((j_idx < 0) | (j_idx > L), _BIG, val)
+        def step(i, state):
+            b, rows, pre = state
+            rows = rows + (char_row(i + band - 1),)
+            qc = q_ref[qi, i - 1]
+            # the diagonal cell's row is chars[i - 1]: the prefix test
+            pre = pre & (rows[band] == qc).astype(jnp.int32)
+            prev = big
+            new = []
+            for k in range(w):
+                j = i + k - band
+                cost = (rows[k] != qc).astype(jnp.int32)
+                up = b[k + 1] + 1 if k + 1 < w else big
+                val = jnp.minimum(jnp.minimum(up, b[k] + cost), prev + 1)
+                val = jnp.where(j == 0, i, val)
+                val = jnp.where((j < 0) | (j > L), _BIG, val)
                 val = jnp.minimum(val, _BIG)
                 prev = val
-                new_rows.append(val)
-            return jnp.stack(new_rows, axis=0)
+                new.append(val)
+            return tuple(new), rows[1:], pre
 
-        B = jax.lax.fori_loop(1, qlen + 1, qstep, B0)
-
-        off = lens - qlen + D_BAND
-        dist = jnp.full((TILE_N_BATCH,), _BIG, dtype=jnp.int32)
-        prefix_dist = jnp.full((TILE_N_BATCH,), _BIG, dtype=jnp.int32)
-        for oi in range(_W):
-            o = oi - D_BAND
-            dist = jnp.where(off == oi, B[oi], dist)
-            ok = (qlen + o >= 0) & (qlen + o <= lens)
-            prefix_dist = jnp.minimum(prefix_dist, jnp.where(ok, B[oi], _BIG))
+        b, _, pre = jax.lax.fori_loop(1, qlen + 1, step, (b0, rows0, pre0))
+        off = lens - qlen + band  # band cell of the term end
+        dist = big
+        for k in range(w):
+            dist = jnp.where(off == k, b[k], dist)
         valid = lens > 0
-        dist_ref[q, :] = jnp.where(valid, dist, _BIG)
-        prefix_ref[q, :] = jnp.where(valid, prefix_dist, _BIG)
-        return 0
+        dist_ref[qi, :] = jnp.where(valid & (dist <= band), dist, _BIG)
+        pre_ref[qi, :] = (
+            pre * (valid & (lens >= qlen)).astype(jnp.int32)
+        ).astype(jnp.int8)
+        return carry
 
-    jax.lax.fori_loop(0, nq, one_query, 0)
-
-
-def _kernel_banded_batch(
-    band, query_ref, qlen_ref, chars_ref, len_ref, dist_ref, prefix_ref, chars32
-):
-    """Banded DP for one term tile x ALL queries. The query loop runs INSIDE
-    the kernel (fori_loop) over a VMEM-staged chars tile: one fat program per
-    tile instead of tiles*Q tiny ones — per-program fixed overhead dominated
-    the (tile, query) grid formulation (measured ~44us/program)."""
-    D_BAND = band
-    _W = 2 * band + 1
-    nq = dist_ref.shape[0]
-    lens = len_ref[0, :]
-    chars32[:, :] = chars_ref[:, :].astype(jnp.int32)
-
-    def one_query(q, _):
-        qlen = qlen_ref[q]
-        init_rows = []
-        for oi in range(_W):
-            o = oi - D_BAND
-            if o >= 0:
-                init_rows.append(jnp.full((TILE_N_BATCH,), o, dtype=jnp.int32))
-            else:
-                init_rows.append(jnp.full((TILE_N_BATCH,), _BIG, dtype=jnp.int32))
-        B = init_rows
-        for i in range(1, MAX_QUERY_CHARS + 1):
-            qc = query_ref[q, i - 1]
-            active = i <= qlen
-            prev = jnp.full((TILE_N_BATCH,), _BIG, dtype=jnp.int32)
-            new_rows = []
-            for oi in range(_W):
-                o = oi - D_BAND
-                j_idx = i + o
-                if j_idx < 0 or j_idx > L:
-                    val = jnp.full((TILE_N_BATCH,), _BIG, dtype=jnp.int32)
-                elif j_idx == 0:
-                    val = jnp.full((TILE_N_BATCH,), i, dtype=jnp.int32)
-                else:
-                    cost = (chars32[j_idx - 1, :] != qc).astype(jnp.int32)
-                    up = (
-                        B[oi + 1] + 1
-                        if oi + 1 < _W
-                        else jnp.full((TILE_N_BATCH,), _BIG, jnp.int32)
-                    )
-                    diag = B[oi] + cost
-                    val = jnp.minimum(jnp.minimum(up, diag), prev + 1)
-                    val = jnp.minimum(val, _BIG)
-                prev = val
-                new_rows.append(val)
-            B = [jnp.where(active, n_, b_) for n_, b_ in zip(new_rows, B)]
-
-        off = lens - qlen + D_BAND
-        dist = jnp.full((TILE_N_BATCH,), _BIG, dtype=jnp.int32)
-        prefix_dist = jnp.full((TILE_N_BATCH,), _BIG, dtype=jnp.int32)
-        for oi in range(_W):
-            o = oi - D_BAND
-            dist = jnp.where(off == oi, B[oi], dist)
-            ok = (qlen + o >= 0) & (qlen + o <= lens)
-            prefix_dist = jnp.minimum(prefix_dist, jnp.where(ok, B[oi], _BIG))
-        valid = lens > 0
-        dist_ref[q, :] = jnp.where(valid, dist, _BIG)
-        prefix_ref[q, :] = jnp.where(valid, prefix_dist, _BIG)
-        return 0
-
-    jax.lax.fori_loop(0, nq, one_query, 0)
+    jax.lax.fori_loop(0, bq, one_query, 0)
 
 
-def _dyn_default() -> bool:
-    import os
+def _block_q(q: int, n_blocks: int) -> int:
+    """Queries per program: 1 while that leaves too few programs for the
+    card, else the most (up to 16) that keeps ``_MIN_PROGRAMS`` — a program
+    re-reads its term block from L1/L2 for each of its queries."""
+    bq = 1
+    while (
+        bq < _MAX_BLOCK_Q
+        and bq * 2 <= q
+        and n_blocks * pl.cdiv(q, bq * 2) >= _MIN_PROGRAMS
+    ):
+        bq *= 2
+    return bq
 
-    return os.environ.get("VELOCI_DYNLEN_SWEEP", "1") != "0"
 
-
-@functools.partial(jax.jit, static_argnames=("interpret", "band", "dyn"))
-def levenshtein_sweep_pallas_banded_batch(
-    chars_t: jax.Array,  # [L, N_pad] uint16
-    term_lens: jax.Array,  # [N_pad] int32
+@functools.partial(
+    jax.jit, static_argnames=("band", "block_n", "num_warps", "interpret")
+)
+def banded_sweep(
+    chars_t: jax.Array,  # [L, N] uint16
+    term_lens: jax.Array,  # [N] int32 (0 = pad)
     queries: jax.Array,  # [Q, MAX_QUERY_CHARS] uint16
     query_lens: jax.Array,  # [Q] int32
-    interpret: bool = False,
     band: int = D_BAND,
-    dyn: bool | None = None,
+    block_n: int = BLOCK_N,
+    num_warps: int = 4,
+    interpret: bool = False,
 ):
-    """Batched banded sweep: ONE kernel for a whole query batch.
+    """Banded sweep of ``Q`` queries over ``N`` terms in one kernel.
 
-    Returns (dist [Q, N], prefix_dist [Q, N], is_prefix [Q, N]). The chars
-    tile stays VMEM-resident across the inner query axis, so HBM traffic is
-    ~one dictionary read per batch instead of per query. ``dyn`` selects the
-    dynamic-query-length DP loop (default on, VELOCI_DYNLEN_SWEEP=0 reverts
-    to the full 32-step unroll)."""
-    if dyn is None:
-        dyn = _dyn_default()
+    Returns ``(dist [Q, N] int32, is_prefix [Q, N] bool)``; ``band`` must
+    be >= every distance the caller matches against (a d <= 2 batch passes
+    band=2 for ~45% less DP than band=4)."""
     l, n = chars_t.shape
+    assert l == L, chars_t.shape
     q = queries.shape[0]
-    tb = TILE_N_BATCH
-    if n % tb:
-        # pad the term axis up to the batch tile (pads have len 0 -> _BIG)
-        pad = tb - n % tb
-        chars_t = jnp.pad(chars_t, ((0, 0), (0, pad)))
-        term_lens = jnp.pad(term_lens, (0, pad))
-        n = n + pad
-    assert l == L
-    grid = (n // tb,)
-    dist, prefix_dist = pl.pallas_call(
-        functools.partial(
-            _kernel_banded_batch_dyn if dyn else _kernel_banded_batch, band
-        ),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((L, tb), lambda t, *_: (0, t)),
-                pl.BlockSpec((1, tb), lambda t, *_: (0, t)),
-            ],
-            out_specs=[
-                pl.BlockSpec((q, tb), lambda t, *_: (0, t)),
-                pl.BlockSpec((q, tb), lambda t, *_: (0, t)),
-            ],
-            scratch_shapes=[pltpu.VMEM((L, tb), jnp.int32)],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((q, n), jnp.int32),
-            jax.ShapeDtypeStruct((q, n), jnp.int32),
+    n_pad = pl.cdiv(n, block_n) * block_n
+    bq = _block_q(q, n_pad // block_n)
+    q_pad = pl.cdiv(q, bq) * bq
+    chars_p = jnp.pad(chars_t, ((0, 0), (0, n_pad - n)))
+    lens_p = jnp.pad(term_lens.astype(jnp.int32), (0, n_pad - n))
+    q_p = jnp.pad(queries.astype(jnp.int32), ((0, q_pad - q), (0, 0)))
+    ql_p = jnp.pad(query_lens.astype(jnp.int32), (0, q_pad - q))
+    dist, is_prefix = pl.pallas_call(
+        functools.partial(_sweep_kernel, band),
+        grid=(q_pad // bq, n_pad // block_n),  # query groups vary fastest
+        in_specs=[
+            pl.BlockSpec((bq, MAX_QUERY_CHARS), lambda g, t: (g, 0)),
+            pl.BlockSpec((bq,), lambda g, t: (g,)),
+            pl.BlockSpec((L, block_n), lambda g, t: (0, t)),
+            pl.BlockSpec((block_n,), lambda g, t: (t,)),
         ],
-        interpret=interpret,
-    )(
-        queries.astype(jnp.int32),
-        query_lens.astype(jnp.int32),
-        chars_t,
-        term_lens.reshape(1, n),
-    )
-    pos = jnp.arange(l, dtype=jnp.int32)
-    # [Q, L, N] would be large; compute is_prefix per query with a vmap over
-    # the fused comparison instead
-    def one_prefix(query, qlen):
-        eq = (chars_t.astype(jnp.int32) == query[:l].astype(jnp.int32)[:, None]) | (
-            pos[:, None] >= qlen
-        )
-        return jnp.all(eq, axis=0) & (term_lens >= qlen) & (term_lens > 0)
-
-    is_prefix = jax.vmap(one_prefix)(queries, query_lens)
-    return dist, prefix_dist, is_prefix
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "band"))
-def levenshtein_sweep_pallas_banded(
-    chars_t: jax.Array,  # [L, N_pad] uint16
-    term_lens: jax.Array,  # [N_pad] int32
-    query: jax.Array,  # [MAX_QUERY_CHARS] uint16
-    query_len: jax.Array,  # scalar int32
-    interpret: bool = False,
-    band: int = D_BAND,
-):
-    """Banded sweep: exact distances within the +-band diagonal, _BIG
-    outside. ``band`` is static (one compile per width); it must be >= the
-    match distance — a d<=2 query on band=2 does ~45% less DP than the
-    default +-4 (Ukkonen: paths leaving the |i-j|<=d band exceed d)."""
-    l, n = chars_t.shape
-    assert l == L and n % TILE_N == 0
-    grid = (n // TILE_N,)
-    dist, prefix_dist = pl.pallas_call(
-        functools.partial(_kernel_banded, band),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=2,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((L, TILE_N), lambda t, *_: (0, t)),
-                pl.BlockSpec((1, TILE_N), lambda t, *_: (0, t)),
-            ],
-            out_specs=[
-                pl.BlockSpec((1, TILE_N), lambda t, *_: (0, t)),
-                pl.BlockSpec((1, TILE_N), lambda t, *_: (0, t)),
-            ],
-            scratch_shapes=[pltpu.VMEM((L, TILE_N), jnp.int32)],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
+        out_specs=[
+            pl.BlockSpec((bq, block_n), lambda g, t: (g, t)),
+            pl.BlockSpec((bq, block_n), lambda g, t: (g, t)),
         ],
+        out_shape=[
+            jax.ShapeDtypeStruct((q_pad, n_pad), jnp.int32),
+            jax.ShapeDtypeStruct((q_pad, n_pad), jnp.int8),
+        ],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=num_warps, num_stages=1),
         interpret=interpret,
-    )(
-        query.astype(jnp.int32),
-        query_len.reshape(1).astype(jnp.int32)
-        if query_len.ndim == 0
-        else query_len.astype(jnp.int32),
-        chars_t,
-        term_lens.reshape(1, n),
-    )
-    dist = dist[0]
-    prefix_dist = prefix_dist[0]
-    pos = jnp.arange(l, dtype=jnp.int32)
-    eq = (chars_t.astype(jnp.int32) == query[:l].astype(jnp.int32)[:, None]) | (
-        pos[:, None] >= query_len
-    )
-    is_prefix = jnp.all(eq, axis=0) & (term_lens >= query_len) & (term_lens > 0)
-    return dist, prefix_dist, is_prefix
+        name=f"levenshtein_band{band}",
+    )(q_p, ql_p, chars_p, lens_p)
+    return dist[:q, :n], is_prefix[:q, :n] != 0

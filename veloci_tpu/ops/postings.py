@@ -1,6 +1,6 @@
 """Posting-list resolution: matched terms -> dense per-document score vector.
 
-TPU-native replacement for `resolve_token_to_anchor`
+Device replacement for `resolve_token_to_anchor`
 (reference src/search/search_field.rs:400-504). Instead of iterating each
 token's delta-compressed posting list and sort+dedup-ing hits, the matched
 token ids drive a ragged CSR gather with **static padded shapes**, and the
@@ -36,9 +36,8 @@ def fill_segments_i32(values: jax.Array, out_starts: jax.Array, capacity: int):
     ``values`` [T] int32, ``out_starts`` [T] int32 (non-decreasing segment
     start positions; duplicates = empty segments, the LAST duplicate wins).
 
-    TPU-native replacement for ``values[searchsorted(out_starts, idx)]`` —
-    both searchsorted and the follow-up gather lower to ~9ns/element serial
-    loops; this is one 256-element scatter + one cumsum (pure vector ops).
+    Replacement for ``values[searchsorted(out_starts, idx)]`` (a binary
+    search + gather per element): one small scatter + one cumsum.
     Integer diffs telescope exactly, so the fill is bit-exact.
     """
     import jax.numpy as jnp

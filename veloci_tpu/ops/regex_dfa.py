@@ -1,4 +1,4 @@
-"""TPU-native regex term matching: host regex->DFA compilation + a batched
+"""Device regex term matching: host regex->DFA compilation + a batched
 DFA sweep over the dictionary char matrix.
 
 The reference intersects a dense regex DFA with the FST
@@ -6,9 +6,8 @@ The reference intersects a dense regex DFA with the FST
 practical regex subset) to a DFA over CHARACTER EQUIVALENCE CLASSES, and the
 device advances all terms' states in lockstep — one `lax.scan` over the 32
 char positions where each step is C small one-hot matmuls
-(``state_oh @ T[c]`` selected by the per-term class): the per-element table
-walk a CPU would do lowers to serial gathers on TPU, the one-hot form rides
-the MXU.
+(``state_oh @ T[c]`` selected by the per-term class) instead of a
+per-element table walk (one gather per term per char).
 
 Unsupported syntax (backrefs, lookaround, {m,n}, huge DFAs) returns None
 from :func:`compile_dfa` and the caller falls back to the host `re` scan —
@@ -357,9 +356,14 @@ def _sweep_kernel(
         oh, acc_prefix = carry
         c_j = cls[:, j]
         nxt = jnp.zeros_like(oh)
-        for c in range(num_classes):  # C one-hot matmuls ride the MXU
+        for c in range(num_classes):  # C one-hot matmuls
             sel = (c_j == c).astype(jnp.float32)[:, None]
-            nxt = nxt + sel * (oh @ trans_oh[c])
+            # 0/1 operands with one nonzero product per output are exact
+            # even in TF32; HIGHEST keeps the GPU's f32 product in full
+            # f32 so the result does not rest on that argument
+            nxt = nxt + sel * jnp.dot(
+                oh, trans_oh[c], precision=jax.lax.Precision.HIGHEST
+            )
         active = (j < lens)[:, None]
         oh = jnp.where(active, nxt, oh)
         if prefix:

@@ -1,7 +1,7 @@
 """Fused device search steps: matched terms -> top-k documents in ONE XLA
 program.
 
-This is the TPU-native lowering of the reference's hot query path
+This is the device lowering of the reference's hot query path
 (`ResolveTokenIdToAnchor` -> `Union` -> `top_n_sort`;
 src/search/search_field.rs:400-504, set_op.rs:87-220, sort.rs:5-34): a ragged
 CSR gather over the anchor-score postings, per-(term-slot, anchor) max via
@@ -45,10 +45,9 @@ def _single_term_impl(offsets, anchors, scores01, term_id, term_score, capacity,
                       packed=None):
     start = offsets[term_id]
     count = offsets[term_id + 1] - start
-    # a term's posting run is CONTIGUOUS: a dynamic_slice is a straight HBM
-    # DMA (a per-element gather lowers to a ~9ns/element serial loop on TPU
-    # — measured; the device arrays carry >= capacity tail padding so the
-    # window never clamps). With ``packed`` ONE [capacity, 2] row slice
+    # a term's posting run is CONTIGUOUS: a dynamic_slice is one contiguous
+    # read instead of a per-element gather (the device arrays carry
+    # >= capacity tail padding so the window never clamps). With ``packed`` ONE [capacity, 2] row slice
     # replaces both slices — and the separate anchors/scores01 arrays never
     # need to exist on device at all (half the posting H2D/HBM).
     if packed is not None:
@@ -128,8 +127,8 @@ def _gather_postings(offsets, anchors, scores01, term_ids, term_scores,
 
     * ``packed`` ([nnz, 2] int32 interleaved (anchor, score-bits) rows,
       `DeviceField.packed`) — ONE 8-byte row gather per posting instead of
-      two 4-byte gathers: measured 2.1-4.7x faster on v5e. Preferred when
-      the caller holds a device bundle.
+      two 4-byte gathers. Preferred when the caller holds a device
+      bundle.
     * ``win=None`` — per-element gathers via scatter+cumsum source indices.
       Kept for callers whose arrays lack the packed form (ad-hoc tests,
       mesh shards).
@@ -164,18 +163,14 @@ def _gather_postings(offsets, anchors, scores01, term_ids, term_scores,
         and capacity % _BLOCK == 0
     ):
         # BLOCK gather: posting runs are CONTIGUOUS in ``packed``, so read
-        # them at 16-row (128 B) granularity instead of 8 B elements — an
-        # element gather lowers to a ~6 ns/element serial loop on TPU while
-        # the same postings as 16-row block gathers measure 0.08 ms vs
-        # 2.58 ms for a [64, 4096] read (33x; also ~16x less XLA compile,
-        # which previously hit 391 s for a [16, 65536] element gather).
-        # Each run is covered by ceil(count/16)+1 possibly-misaligned
+        # them at 16-row (128 B) granularity instead of 8 B elements (16x
+        # fewer gather indices, and far less XLA compile for big
+        # capacities). Each run is covered by ceil(count/16)+1 possibly-misaligned
         # blocks; edge elements outside [start, end) are masked to the
         # usual sentinels (anchor=num_docs, score=-inf), which every
         # downstream evaluator already excludes. Output width grows from
-        # ``capacity`` to ``capacity + 16 * t_pad`` (the per-run slack) —
-        # the sort runs at ~0.2 ns/element, so the padding is far cheaper
-        # than gathering.
+        # ``capacity`` to ``capacity + 16 * t_pad`` (the per-run slack),
+        # which the downstream sort absorbs.
         B = _BLOCK
         ends = starts + counts
         b_starts = starts >> 4
@@ -218,8 +213,8 @@ def _gather_postings(offsets, anchors, scores01, term_ids, term_scores,
             return a, s, slot_fill, ng_fill
         return a, s, slot_fill
     if win is None:
-        # segment mapping via scatter+cumsum fills — searchsorted and
-        # small-table gathers lower to serial per-element loops on TPU
+        # segment mapping via scatter+cumsum fills instead of searchsorted
+        # + small-table gathers
         slot_fill = fill_segments_i32(slots, out_starts_ex, capacity)
         src = idx + fill_segments_i32(starts - out_starts_ex, out_starts_ex, capacity)
         tsc_fill = fill_segments_f32(term_scores, out_starts_ex, capacity)
@@ -282,16 +277,14 @@ def _gather_postings_sliced(
     offset (plain concatenation — no compaction, no per-element gather, no
     segment fills).
 
-    Why: a per-element gather over ``[capacity]`` measures ~13 ns/element
-    at runtime AND ~6 ms/element of XLA compile time on v5e (391 s for a
-    [16, 65536] gather — the dominant cost of every big-capacity kernel
-    variant), while the same postings read as 16 vmapped dynamic_slices
-    cost 1.5 ns/element and ~8 s to compile. Each term's ragged tail stays
+    Why: a per-element gather over ``[capacity]`` pays one index per
+    posting at runtime and a compile time that grows with the capacity,
+    while the same postings read as a few vmapped dynamic_slices are
+    contiguous reads with a small program. Each term's ragged tail stays
     in place as masked padding (anchor=num_docs, score=-inf) — exactly the
     sentinels the sorted-run evaluators already exclude, so downstream
     code is unchanged; only the working width grows from ``capacity`` to
-    ``sum(widths)`` (the sort runs at ~0.2 ns/element, so padding is far
-    cheaper than gathering).
+    ``sum(widths)``, which the downstream sort absorbs.
 
     The caller picks ``widths`` (host-side, static per dispatch) such that
     widths[j] >= term j's posting count for every query in the batch —
@@ -304,7 +297,6 @@ def _gather_postings_sliced(
     t_pad = term_ids.shape[0]
     # a widths/term mismatch would silently DROP trailing term columns
     # (enumerate stops at the shorter sequence) — fail loudly instead
-    # (ADVICE r4 #4)
     assert len(widths) == t_pad, (
         f"slice widths ({len(widths)}) != term columns ({t_pad})"
     )
@@ -377,9 +369,9 @@ def batched_search_topk(
 ):
     """Throughput mode: a batch of queries in ONE device dispatch.
 
-    The serving-side analogue of the reference's per-request thread pool —
-    on TPU, queries batch into one `vmap`'d XLA program so HBM bandwidth,
-    not dispatch latency, sets the throughput ceiling.
+    The serving-side analogue of the reference's per-request thread pool:
+    queries batch into one `vmap`'d XLA program so device bandwidth, not
+    dispatch latency, sets the throughput ceiling.
     """
 
     def one(tids, tscores):

@@ -3,12 +3,11 @@
 Result order parity with the reference requires sorting by
 (score desc, id desc) — `sort_by_score_and_id`, src/search.rs:122-130.
 
-A flat `lax.top_k` over the whole ``[num_docs]`` plane costs ~25 ms per
-200-query batch at 100k docs on v5e (it sorts the full plane). The
-TPU-native selection here is **two-stage and exact**:
+A flat `lax.top_k` over the whole ``[num_docs]`` plane sorts the full
+plane. The selection here is **two-stage and exact**:
 
-1. reshape the plane into 128-wide blocks (one VPU lane row each) and take
-   per-block maxima — one streaming pass over HBM,
+1. reshape the plane into 128-wide blocks and take per-block maxima — one
+   streaming pass over device memory,
 2. `lax.top_k` over the tiny block-max vector picks the k candidate blocks
    (ties prefer the lower block index — `lax.top_k` is stable, which the
    proof below needs),
@@ -56,9 +55,8 @@ def topk_positions(vals: jax.Array, k: int, block: int | None = None):
     vmap-safe; composes inside larger jitted programs.
 
     ``block`` balances the two stages (stage-2 candidate set is k*block):
-    for large k the default narrows to 64 — at the fuzzy-select shape
-    (n=61k, k=256) that is 4.5x faster than 128 (0.78 vs 3.55 ms/64q,
-    measured on v5e: the candidate top_k dominates and halves with block).
+    for large k the default narrows to 64, because the candidate top_k
+    dominates there and halves with the block.
     """
     n = vals.shape[0]
     if block is None:
@@ -111,7 +109,7 @@ def top_k_scores(dense, k: int) -> Tuple[np.ndarray, np.ndarray]:
     """Top-k hits (ids, scores) ordered by (score desc, id desc).
 
     Device path used by the generic executor when the dense plane lives on
-    the TPU. Exact — the two-stage selection already encodes the
+    the device. Exact — the two-stage selection already encodes the
     reference's tie-break, so no host re-sort is needed.
     """
     n = int(dense.shape[0])

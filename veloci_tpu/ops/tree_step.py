@@ -1,10 +1,9 @@
 """Sorted-run tree evaluation: the scatter-free, plane-free query kernel.
 
-The round-2 generic kernels evaluated the query tree on a dense
+The dense generic kernels evaluate the query tree on a
 ``[num_slots, num_docs]`` score plane (`jax.ops.segment_max` scatter +
-top-k over the whole corpus). On TPU a per-element scatter lowers to a
-~10-30 ns serial loop and the plane materialises ``num_slots * num_docs``
-f32 in HBM — the dominant cost of batched serving, and it *scales with
+top-k over the whole corpus): a per-element scatter, and a plane of
+``num_slots * num_docs`` f32 in device memory whose cost *scales with
 corpus size* even when a query touches 500 postings.
 
 This module replaces the plane with a **sorted-run** formulation whose cost
@@ -90,7 +89,7 @@ _HIT_EPS = np.float32(1e-30)
 def _seg_scan(values, resets):
     """Inclusive segmented sum: per position, the sum of ``values`` from the
     last position where ``resets`` is True (segment start) through here.
-    Associative -> O(log n) depth on the VPU."""
+    Associative -> O(log n) depth."""
 
     def comb(x, y):
         fx, vx = x
@@ -105,9 +104,8 @@ def _seg_scan2(values_a, values_b, resets):
     """Two segmented sums sharing ONE reset vector in ONE associative scan.
 
     The tree evaluator's (sum, count) pairs always share their segment
-    boundaries; fusing them halves the number of scan passes — at 65k
-    elements a single segmented scan measures ~3.5 ms run / ~60 s compile
-    on v5e, so scan count is a first-order cost."""
+    boundaries; fusing them halves the number of scan passes, and scan
+    count is a first-order cost of both run and compile time."""
 
     def comb(x, y):
         fx, va, vb = x
@@ -141,8 +139,8 @@ def tree_candidates_single(
     new_anchor = jnp.concatenate(
         [jnp.ones(1, dtype=bool), a_s[1:] != a_s[:-1]]
     )
-    # s_s >= _EPS mirrors tree_candidates' slot_hit gate (ADVICE r4 #1:
-    # isfinite alone admitted scores in (0, _EPS) the general kernel drops)
+    # s_s >= _EPS mirrors tree_candidates' slot_hit gate (isfinite alone
+    # admitted scores in (0, _EPS) the general kernel drops)
     cand = (
         new_anchor & (a_s >= 0) & (a_s < num_docs) & (s_s >= _EPS)
     )
@@ -236,7 +234,7 @@ def tree_candidates_deep(
     num_docs: int,
     phrase_count: Optional[jax.Array] = None,
 ):
-    """Three-alternation tree evaluation (VERDICT r3 #5): the host
+    """Three-alternation tree evaluation: the host
     executor's recursive composition (_eval_scores) as two more segmented
     stages over the same single sort.
 
@@ -381,7 +379,7 @@ def batched_tree_topk(
     filter_idx: Optional[jax.Array],  # [Q] int32 into filter_masks | None
     phrase_anchors: Optional[jax.Array],  # [Q, P_pad] int32 (pad num_docs) | None
     boost_arrays: Tuple,  # tuple of (bv [num_docs] f32, pres bool, expr_add|None)
-    facet_mats: Tuple,  # tuple of M [num_docs, G_i] bf16
+    facet_mats: Tuple,  # tuple of M [num_docs, G_i] f32
     capacity: int,
     num_docs: int,
     k: int,
@@ -407,13 +405,13 @@ def batched_tree_topk(
     is ignored. A separate compile — the hot two-level shapes pay nothing.
 
     ``slice_widths`` (static, from the host `_slice_plan`) replaces the
-    per-element posting gather with one contiguous dynamic_slice per term —
-    the element gather costs ~13 ns/el at runtime and MINUTES of XLA
-    compile at 64k capacity; slices cost 1.5 ns/el and seconds.
+    per-element posting gather with one contiguous dynamic_slice per term
+    (contiguous reads, and a far smaller program to compile at large
+    capacities).
     ``single_slot=True`` (every query is one leaf's term variants) skips
     the segmented scans entirely: dedup-max IS the sorted run's first row.
     """
-    from .generic_step import _precompute_boost
+    from .generic_step import _precompute_boost, facet_counts
     from .search_step import _gather_postings_sliced
 
     pre_boosts = tuple(
@@ -483,13 +481,7 @@ def batched_tree_topk(
                 .at[jnp.where(final > 0, a_s, num_docs)]
                 .add(1.0, mode="drop")[:num_docs]
             )
-            fc = tuple(
-                jnp.dot(
-                    hit_row.astype(jnp.bfloat16), m,
-                    preferred_element_type=jnp.float32,
-                ).astype(jnp.int32)
-                for m in facet_mats
-            )
+            fc = tuple(facet_counts(hit_row, m) for m in facet_mats)
         else:
             fc = ()
         ids, scores = candidates_topk(a_s, final, k)

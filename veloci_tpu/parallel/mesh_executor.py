@@ -6,9 +6,9 @@ every ``[num_docs]`` score/mask/factor vector becomes ``[D, docs_per_shard]``
 with a ``NamedSharding(P("d", None))``. Per-shard work (posting resolve,
 set ops, boosts, filters) is local — elementwise ops on sharded arrays need
 no communication at all; the only collectives are the per-query top-k merge
-(`all_gather` over ICI), the hit-count `psum`, and facet-count `psum` —
+(`all_gather`), the hit-count `psum`, and facet-count `psum` —
 exactly the reference's k-merge/filter-broadcast seams (set_op.rs:159,
-plan_steps.rs:357-366) mapped onto ICI.
+plan_steps.rs:357-366) mapped onto collectives.
 
 Usage::
 
@@ -169,8 +169,8 @@ class MeshContext:
     def fuzzy_match(self, field: str, lower_term: str, distance: int,
                     starts_with: bool = False):
         """Mesh fuzzy term matching: per-shard sweep over the term-sharded
-        dictionary, ICI all_gather of the matches — the serving-path use of
-        `sharded_fuzzy_match` (round 2 exercised it only in the dryrun).
+        dictionary, all_gather of the matches — the serving-path use of
+        `sharded_fuzzy_match`.
         Returns (ids asc, dists, prefixes) over GLOBAL term ids."""
         from ..ops.levenshtein import encode_query
         from .sharding import sharded_fuzzy_match
@@ -294,7 +294,7 @@ class MeshContext:
 
     def topk(self, dense, k: int):
         """Exact global top-k by (score desc, id desc): per-shard two-stage
-        top-k, `all_gather` over ICI, stable merge (shards concatenated in
+        top-k, `all_gather`, stable merge (shards concatenated in
         REVERSE order so the stable top_k tie-break = global id desc)."""
         import jax
         import jax.numpy as jnp
@@ -360,7 +360,7 @@ class MeshContext:
         return sf
 
     def facet_matrix_sharded(self, field: str):
-        """Row-sharded facet relation matrix [D, dps, G] bf16, or None."""
+        """Row-sharded facet relation matrix [D, dps, G] f32, or None."""
         cached = self._facet_mats.get(field)
         if cached is not None:
             return cached
@@ -375,9 +375,7 @@ class MeshContext:
         m, num_targets = host
         padded = np.zeros((self.d * self.dps, num_targets), dtype=np.float32)
         padded[: m.shape[0]] = m
-        import jax.numpy as jnp
-
-        stacked = padded.reshape(self.d, self.dps, num_targets).astype(jnp.bfloat16)
+        stacked = padded.reshape(self.d, self.dps, num_targets)
         sh = NamedSharding(self.mesh, P("d", None, None))
         cached = (jax.device_put(stacked, sh), num_targets)
         self._facet_mats[field] = cached
@@ -405,7 +403,7 @@ class MeshContext:
         planes, cached per-shard filter masks (index per query — the
         FilterChannel broadcast as resident sharded vectors), elementwise
         boosts on sharded columns, local facet matmul + `psum`, exact
-        per-shard top-k merged over ICI `all_gather`. When the mesh has a
+        per-shard top-k merged with `all_gather`. When the mesh has a
         ``q`` axis the query batch additionally splits across it (each q
         row evaluates its slice; results all_gather over ``q``) — the
         multichip twin of ops/generic_step.batched_generic_topk.
@@ -413,7 +411,7 @@ class MeshContext:
         With ``deep_maps`` the tree is a DEEP (3-alternation, OR-of-ANDs)
         spec: ``sl_arr`` carries compact leaf-plane indices and the maps
         carry the per-query plane->group->subtree->term structure
-        (VERDICT r4 #6 — tree_dense_deep; execution_plan.rs:272-387)."""
+        (tree_dense_deep; execution_plan.rs:272-387)."""
         import jax
         import jax.numpy as jnp
         from jax.sharding import PartitionSpec as P
@@ -422,6 +420,7 @@ class MeshContext:
         from ..ops.generic_step import (
             _apply_boost,
             _precompute_boost,
+            facet_counts,
             phrase_factor,
             tree_dense,
             tree_dense_deep,
@@ -569,14 +568,7 @@ class MeshContext:
                     jnp.sum(hits_b, axis=1, dtype=jnp.int32), "d"
                 )
                 counts = tuple(
-                    jax.lax.psum(
-                        jnp.dot(
-                            hits_b.astype(jnp.bfloat16),
-                            m[0],
-                            preferred_element_type=jnp.float32,
-                        ),
-                        "d",
-                    ).astype(jnp.int32)
+                    jax.lax.psum(facet_counts(hits_b, m[0]), "d")
                     for m in fmats
                 )
                 if qsh > 1:

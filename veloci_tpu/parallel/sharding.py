@@ -2,14 +2,14 @@
 
 The reference is single-node shared-memory (its sharding exists only as
 commented-out code, server/rocket_server.rs:41,102-108 — SURVEY.md §2.4).
-Here sharding is first-class and TPU-native:
+Here sharding is first-class:
 
 * **document sharding** (axis ``d``): the anchor-score postings are
   partitioned by anchor range; every device holds the full term dictionary
   (token-id space replicated) plus only its anchor range's postings. Each
   query resolves locally into a dense ``[docs_per_shard]`` score slice;
-  per-shard top-k results merge with an ``all_gather`` over ICI — the
-  TPU-native replacement for the reference's k-merge of sorted hit lists
+  per-shard top-k results merge with an ``all_gather`` — the
+  replacement for the reference's k-merge of sorted hit lists
   (set_op.rs:159).
 * **query-batch parallelism** (axis ``q``): independent queries execute as a
   batch `vmap`'d across the other mesh axis.
@@ -115,7 +115,7 @@ class ShardedPostings:
 class ShardedDictionary:
     """Term-axis sharding of the fuzzy-sweep char matrix (the tensor-parallel
     analog: each device sweeps its slice of the dictionary; matches merge
-    with an all_gather over ICI)."""
+    with an all_gather)."""
 
     def __init__(self, chars: np.ndarray, lengths: np.ndarray, mesh: Mesh, axis: str = "d"):
         d = mesh.shape[axis]
@@ -338,7 +338,7 @@ def sharded_search_topk(
     facet_segments: Optional[np.ndarray] = None,  # [D, max_nnz] int32 or None
     num_facet_values: int = 0,
 ) -> Tuple[jax.Array, jax.Array, Optional[jax.Array]]:
-    """Distributed batched search: per-shard resolve + top-k, ICI merge.
+    """Distributed batched search: per-shard resolve + top-k, all_gather merge.
 
     Returns (ids [Q, k] global doc ids, scores [Q, k], facet_counts or None).
     """

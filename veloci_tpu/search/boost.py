@@ -3,7 +3,7 @@ phrase boosts, text-locality boosts — all as dense per-document vector ops.
 
 Reference: src/search/boost.rs and src/expression.rs. Where the reference
 walks sorted hit/boost iterators in lockstep (`apply_boost_from_iter`,
-`apply_boost_values_anchor`), the TPU-native form aggregates boost
+`apply_boost_values_anchor`), the device form aggregates boost
 occurrences per anchor (product / sum / last, matching the sequential
 semantics) and applies them to the dense score vector elementwise.
 """

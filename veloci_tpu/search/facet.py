@@ -1,6 +1,6 @@
 """Facet counting over column indices.
 
-Reference: src/facet.rs. The TPU-native formulation: the (source -> target)
+Reference: src/facet.rs. The device formulation: the (source -> target)
 relation is a fixed pair list, so counting targets over a hit set is one
 masked segment-sum / bincount over the whole relation — no per-id pointer
 chasing (`count_values_for_ids` / `AggregationCollector`).
@@ -22,11 +22,11 @@ from ..utils import get_steps_to_anchor
 
 __all__ = ["get_facet", "facet_matrix", "format_counts"]
 
-# batched-path gates: the dense relation matrix M [num_docs, G] bf16 lives
-# in HBM once per (persistence, field); cap its size so high-cardinality
-# facets fall back to the per-request path
+# batched-path gates: the dense relation matrix M [num_docs, G] f32 lives
+# in device memory once per (persistence, field); cap its size so
+# high-cardinality facets fall back to the per-request path
 FACET_MAX_TARGETS = 512
-FACET_MAX_BYTES = 128 * 1024 * 1024
+FACET_MAX_BYTES = 256 * 1024 * 1024
 
 # per-persistence device relation cache: (id(persistence), path) ->
 # (sources_dev, targets_dev, num_targets)
@@ -109,7 +109,7 @@ def facet_matrix_host(persistence, field: str):
     num_targets = int(targets.max()) + 1 if len(targets) else 1
     if (
         num_targets > FACET_MAX_TARGETS
-        or num_docs * num_targets * 2 > FACET_MAX_BYTES
+        or num_docs * num_targets * 4 > FACET_MAX_BYTES
     ):
         # cache the verdict: eligibility probes run per request and must
         # not rebuild (and discard) the matrix each time
@@ -118,26 +118,25 @@ def facet_matrix_host(persistence, field: str):
     m = np.zeros((num_docs, num_targets), dtype=np.float32)
     np.add.at(m, (sources, targets), 1.0)
     if len(sources) and float(m.max()) > 256.0:
-        # bf16 integers are exact only to 2^8 — a doc with >256 pairs for
-        # one facet value would silently miscount through the bf16 matmul;
-        # such fields take the per-request exact path instead
+        # the host copy is f16 (integers exact to 2^11); a doc with >256
+        # pairs for one facet value is rare enough to take the per-request
+        # exact path instead
         remember("ineligible")
         return None
-    # store as f16 (counts <= 2048 are exact; bf16 conversion of values
-    # <= 256 is exact) — half the resident bytes of the f32 build array
+    # store as f16 — half the resident host bytes of the f32 build array
     cached = (m.astype(np.float16), num_targets)
     remember(cached)
     return cached
 
 
 def facet_matrix(persistence, field: str):
-    """Device (bf16) relation matrix for the batched facet matmul, or None.
+    """Device (f32) relation matrix for the batched facet matmul, or None.
 
     ``M[d, g]`` = number of (doc d -> facet value g) pairs in the fast-path
     relation — the same pairs `get_facet`'s fast path counts with a masked
     bincount (reference count_values_for_ids, facet.rs:95-161). Facet
-    counting for a query batch is then ONE MXU matmul: ``counts = hits @ M``
-    (hits are 0/1 so bf16 inputs with f32 accumulation give exact integer
+    counting for a query batch is then ONE matmul: ``counts = hits @ M``
+    at full f32 precision (ops/generic_step.facet_counts: exact integer
     counts). None when no fast-path relation exists or the matrix exceeds
     the cardinality/memory gates (FACET_MAX_TARGETS / FACET_MAX_BYTES).
     """
@@ -151,7 +150,7 @@ def facet_matrix(persistence, field: str):
         return cached
     import jax.numpy as jnp
 
-    cached = (jnp.asarray(m.astype(jnp.bfloat16)), num_targets)
+    cached = (jnp.asarray(m.astype(np.float32)), num_targets)
     if len(_DEVICE_PAIRS) > 256:
         _DEVICE_PAIRS.clear()
     _DEVICE_PAIRS[key] = cached

@@ -1,6 +1,6 @@
 """Field-level term matching: exact / prefix / fuzzy / regex.
 
-TPU-native replacement for `get_term_ids_in_field`
+Device replacement for `get_term_ids_in_field`
 (reference src/search/search_field.rs:277-398):
 
 * exact & prefix (lev 0) — O(log N) binary search over the packed sorted
@@ -40,9 +40,9 @@ __all__ = [
 
 _F32 = np.float32
 
-# The banded Pallas sweep's ONLY row-count shape (see prefetch_fuzzy_matches
+# The banded sweep kernel's ONLY row-count shape (see prefetch_fuzzy_matches
 # and precompile_fuzzy_sweep): every batch pads its query axis to this, so
-# each dictionary width compiles exactly one Mosaic kernel.
+# each dictionary width compiles exactly one kernel.
 BANDED_ROWS = 64
 
 
@@ -123,23 +123,22 @@ def prefetch_fuzzy_matches(persistence, specs) -> None:
     ``specs`` is an iterable of (field, lower_term, distance, starts_with).
     Distinct uncached specs group by field and run through ONE batched sweep
     + on-device selection per field, with ONE host sync for all fields —
-    the per-leaf dispatch + D2H cost (~30 ms each over a thin link) that
+    the per-leaf dispatch + device-to-host sync that
     made generator-shaped queries (auto-levenshtein leaves,
     query_generator.rs:85-99) miss the batched serving paths amortises over
     the whole batch. Results land in the same memo
     :func:`_match_fuzzy_device` reads, so the memoized field searches that
     follow are cache hits."""
-    import os
-
     import jax
     import jax.numpy as jnp
 
     from ..ops.levenshtein import levenshtein_sweep, select_matches
+    from ..ops.pallas_levenshtein import banded_sweep, use_banded_kernel
 
     memo = _fuzzy_match_cache(persistence)
     if getattr(persistence, "mesh_ctx", None) is not None:
         # mesh: each match runs as its own sharded sweep (term-sharded
-        # dictionary + ICI gather); results land in the same memo
+        # dictionary + all-gather); results land in the same memo
         for spec in set(specs):
             if spec not in memo and len(spec[1]) <= MAX_QUERY_CHARS - 1:
                 _match_fuzzy_device(persistence, *spec)
@@ -175,33 +174,21 @@ def prefetch_fuzzy_matches(persistence, specs) -> None:
                 )
             continue
         mm = min(max_matches, dev.chars.shape[0])
-        use_banded = (
-            os.environ.get("VELOCI_PALLAS_SWEEP", "1") != "0"
-            and jax.default_backend() == "tpu"
-            and all(d <= 4 for _t, d in items)
-        )
-        # the sweep's distance matrix is [chunk, N] i32 — chunk so it stays
-        # within a fixed HBM budget at multi-million-term dictionaries; the
-        # banded Pallas kernel additionally caps the query axis at 64 (its
-        # VMEM tiling holds the per-query DP band on-chip — 362 queries at a
-        # 118k-term dictionary blew the 16 MB scoped-VMEM limit, observed).
-        # Chunks PAD to exactly chunk_q rows (pad rows carry distance -1 →
-        # zero matches) so the kernel compiles ONE shape, ever — a fresh
-        # banded-batch compile costs minutes
+        use_banded = use_banded_kernel(max(d for _t, d in items))
+        # the XLA sweep's DP state is [chunk, N, 33] i32 — chunk so it stays
+        # within a fixed device-memory budget at multi-million-term
+        # dictionaries. The kernel keeps its DP state in registers; its
+        # chunks PAD to exactly BANDED_ROWS rows (pad rows carry distance
+        # -1 -> zero matches) so each dictionary width compiles one shape
         n_pad = dev.chars.shape[0]
-        chunk_q = max(1, int(512e6 // max(n_pad * 4 * 3, 1)))
-        if use_banded:
-            chunk_q = min(chunk_q, BANDED_ROWS)
+        chunk_q = (
+            BANDED_ROWS
+            if use_banded
+            else max(1, int(512e6 // max(n_pad * 4 * 3, 1)))
+        )
         for cbase in range(0, len(items), chunk_q):
             citems = items[cbase : cbase + chunk_q]
             if use_banded:
-                # ONE row shape per dictionary width, ever: a fresh banded
-                # Mosaic compile costs minutes on TPU, and pow2 row buckets
-                # made every batch size a new shape — the r5 rehearsals
-                # stalled 600-1366 s in first serve compiling
-                # (width, rows) combinations one by one. Pad rows are
-                # distance -1 -> zero matches; sweeping 64 rows over a
-                # <=64k-term window costs ~ms, a compile costs minutes.
                 rows_n = BANDED_ROWS
             else:
                 rows_n = 8
@@ -216,11 +203,7 @@ def prefetch_fuzzy_matches(persistence, specs) -> None:
                 qlens[row] = qlen
                 dists_in[row] = distance
             if use_banded:
-                from ..ops.pallas_levenshtein import (
-                    levenshtein_sweep_pallas_banded_batch,
-                )
-
-                dist_b, _pd, ispref_b = levenshtein_sweep_pallas_banded_batch(
+                dist_b, ispref_b = banded_sweep(
                     dev.chars_t, dev.lengths, jnp.asarray(queries),
                     jnp.asarray(qlens),
                     band=2 if max(d for _t, d in citems) <= 2 else 4,
@@ -265,33 +248,24 @@ def prefetch_fuzzy_matches(persistence, specs) -> None:
 def precompile_fuzzy_sweep(dev_variant, band: int = 2):
     """Force-compile the banded sweep + selection for ONE dictionary
     variant's shape, returning the pending device outputs (caller batches
-    the sync). A fresh banded Mosaic compile costs minutes on TPU; warmup
-    calls this per prefetched length-window variant so first serve never
-    pays it (the r5 rehearsals stalled 600-1366 s exactly here). No-op off
-    TPU or with VELOCI_PALLAS_SWEEP=0 (the vmapped XLA sweep compiles in
-    seconds). Matches prefetch_fuzzy_matches' serve-time shapes exactly:
-    [BANDED_ROWS, MAX_QUERY_CHARS] queries over the variant's padded term
-    axis, selection at min(256, width)."""
-    import os
-
+    the sync), so first serve does not pay the compile inline. No-op where
+    the sweep takes the XLA route (it compiles in seconds). Matches
+    prefetch_fuzzy_matches' serve-time shapes exactly: [BANDED_ROWS,
+    MAX_QUERY_CHARS] queries over the variant's padded term axis,
+    selection at min(256, width)."""
     import jax
     import jax.numpy as jnp
 
     from ..ops.levenshtein import select_matches
+    from ..ops.pallas_levenshtein import banded_sweep, use_banded_kernel
 
-    if (
-        os.environ.get("VELOCI_PALLAS_SWEEP", "1") == "0"
-        or jax.default_backend() != "tpu"
-        or dev_variant.chars.shape[0] == 0
-    ):
+    if not use_banded_kernel(band) or dev_variant.chars.shape[0] == 0:
         return None
-    from ..ops.pallas_levenshtein import levenshtein_sweep_pallas_banded_batch
-
     queries = np.zeros((BANDED_ROWS, MAX_QUERY_CHARS), dtype=np.uint16)
     queries[:, :3] = np.uint16(ord("a"))
     qlens = np.full(BANDED_ROWS, 3, dtype=np.int32)
     dists = np.full(BANDED_ROWS, -1, dtype=np.int32)  # pad rows: no matches
-    dist_b, _pd, ispref_b = levenshtein_sweep_pallas_banded_batch(
+    dist_b, ispref_b = banded_sweep(
         dev_variant.chars_t, dev_variant.lengths, jnp.asarray(queries),
         jnp.asarray(qlens), band=band,
     )
@@ -317,7 +291,7 @@ def _match_fuzzy_device(persistence, field, lower_term, distance, starts_with):
         return hit
     mc = getattr(persistence, "mesh_ctx", None)
     if mc is not None:
-        # mesh serving: term-sharded sweep + ICI gather (sharded_fuzzy_match)
+        # mesh serving: term-sharded sweep + all-gather (sharded_fuzzy_match)
         dictionary = persistence.get_dictionary(field)
         ids, dists, prefixes = mc.fuzzy_match(
             field, lower_term, distance, starts_with
@@ -343,37 +317,26 @@ def _match_fuzzy_device(persistence, field, lower_term, distance, starts_with):
         len(lower_term) - distance, len(lower_term) + distance, starts_with
     )
     q, qlen = encode_query(lower_term)
-    import jax
     import jax.numpy as jnp
 
     from ..ops.levenshtein import select_matches, sweep_select
+    from ..ops.pallas_levenshtein import banded_sweep, use_banded_kernel
 
-    # Banded Pallas kernel is the TPU default for non-starts_with matching
-    # (exact within the +-4 band; the XLA sweep spills its DP state to HBM
-    # at large N — 331ms vs 0.24ms per query over 1M terms). starts_with
-    # scoring needs full-term distances beyond the band -> XLA sweep.
-    # VELOCI_PALLAS_SWEEP=0 opts out.
-    import os
-
-    use_banded = (
-        os.environ.get("VELOCI_PALLAS_SWEEP", "1") != "0"
-        and jax.default_backend() == "tpu"
-        and not starts_with
-        and distance <= 4
-    )
+    # the banded kernel serves non-starts_with matching within its band;
+    # starts_with scoring needs full-term distances beyond the band
+    use_banded = use_banded_kernel(distance, starts_with)
     max_matches = 256
     while True:
         mm = min(max_matches, dev.chars.shape[0])
         if use_banded:
-            from .pallas_support import banded_sweep
-
-            dist_d, prefix_d, ispref_d = banded_sweep(
-                dev, q, qlen, band=2 if distance <= 2 else 4
+            dist_d, ispref_d = banded_sweep(
+                dev.chars_t, dev.lengths, jnp.asarray(q)[None],
+                jnp.full((1,), qlen, jnp.int32),
+                band=2 if distance <= 2 else 4,
             )
-            crit_d = prefix_d if starts_with else dist_d
             sel_ids, sel_dist, sel_prefix, total = select_matches(
-                dist_d, ispref_d, crit_d, jnp.int32(distance), max_matches=mm,
-                remap=dev.sweep_ids,
+                dist_d[0], ispref_d[0], dist_d[0], jnp.int32(distance),
+                max_matches=mm, remap=dev.sweep_ids,
             )
         else:
             sel_ids, sel_dist, sel_prefix, total = sweep_select(
@@ -554,7 +517,7 @@ def _match_regex(
     """Regex term matching: device DFA sweep as the O(N) prefilter, host
     verification of the (small) candidate set for bit-exact `re` parity.
 
-    TPU-native replacement for the reference's regex-DFA x FST intersection
+    Device replacement for the reference's regex-DFA x FST intersection
     (search_field.rs:72-83): the pattern compiles to a class-alphabet DFA on
     the host and sweeps the dictionary char matrix as one-hot matmuls
     (ops/regex_dfa.py). The char matrix is lowercase, so the device runs a
@@ -584,7 +547,7 @@ def _match_regex(
                     dev.chars, dev.lengths, dfa, prefix=starts_with
                 )
             )
-            cand = np.flatnonzero(m[: len(dictionary)])
+            cand = _rows_to_term_ids(dev, np.flatnonzero(m), len(dictionary))
             extra = list(dictionary.long_term_ids())
             empty_id = dictionary.get("")
             if empty_id is not None:
@@ -600,6 +563,15 @@ def _match_regex(
     return np.array(
         [i for i, t in enumerate(dictionary.terms) if fn(t)], dtype=np.int64
     )
+
+
+def _rows_to_term_ids(dev, rows: np.ndarray, num_terms: int) -> np.ndarray:
+    """Sweep-matrix rows -> dictionary term ids. The matrix is compact (no
+    long or empty terms), so row r is term ``sweep_ids[r]``, not term r."""
+    ids = dev._sweep_ids_host
+    if ids is not None:
+        rows = np.asarray(ids)[rows]
+    return rows[(rows >= 0) & (rows < num_terms)].astype(np.int64)
 
 
 def _apply_token_value_boost(persistence, request, result) -> None:

@@ -1,7 +1,7 @@
 """Serving observability: fleet-level dispatch counters.
 
 The reference records per-query `execution_time_ns` (src/search.rs:226);
-an operator of the TPU serving path additionally needs to know WHICH
+an operator of the device serving path additionally needs to know WHICH
 execution path answered each request — the fused kernels answer in tens of
 microseconds, the per-request executor in tens of milliseconds, and round 2
 demoted requests silently (`_MAX_SLOTS` & friends). Every dispatch point

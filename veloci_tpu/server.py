@@ -89,7 +89,7 @@ def ensure_database(database: str, *, trusted_path: bool = False) -> Persistence
             if os.environ.get("VELOCI_WARMUP", "1") != "0":
                 # upload device bundles + compile the serving buckets NOW
                 # (persistent-cache hits after the first process) so the
-                # first real query doesn't pay minutes of cold start
+                # first real query doesn't pay the compiles inline
                 pers.warmup()
             PERSISTENCES[database] = pers
         return pers
@@ -252,7 +252,7 @@ def _folded_search(pers, request: Request):
 
 
 def _folded_suggest(pers, request: Request):
-    """Concurrent suggest requests fold like search does (VERDICT r3 #8):
+    """Concurrent suggest requests fold like search does:
     queued items drain into ONE suggest_batch per dispatch round."""
     if not _FOLD_ENABLED:
         return suggest(pers, request)
